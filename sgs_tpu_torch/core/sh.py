@@ -97,5 +97,13 @@ def eval_sh(degree: int, sh_coeffs: torch.Tensor, dirs: torch.Tensor) -> torch.T
 
 
 def sh_to_rgb_clamped(degree: int, sh_coeffs: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
-    """The rasterizer's SH->color path: +0.5 offset then clamp at 0."""
-    return torch.clamp_min(eval_sh(degree, sh_coeffs, dirs) + 0.5, 0.0)
+    """The rasterizer's SH->color path: +0.5 offset then clamp at 0. The
+    gradient is zero where the colour is clamped, and split in half at an
+    exact tie, as `jnp.maximum`'s is."""
+    rgb = eval_sh(degree, sh_coeffs, dirs) + 0.5
+    return torch.maximum(rgb, torch.zeros_like(rgb))
+
+
+def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
+    """Inverse DC mapping (RGB2SH)."""
+    return (rgb - 0.5) / C0

@@ -13,8 +13,12 @@ import torch
 def normalize(v: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tensor:
     n = torch.linalg.vector_norm(v, dim=dim, keepdim=True)
     if eps:
-        n = torch.clamp_min(n, eps)
+        n = torch.maximum(n, n.new_tensor(eps))  # jnp.maximum's subgradient
     return v / n
+
+
+def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.log(x / (1.0 - x))
 
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""PLY reading, byte-compatible with the Gaussian snapshots the JAX package
-writes. Port of the reader half of `sgs_tpu/data/ply.py`.
+"""PLY reading and writing, byte-compatible with the files the JAX package
+writes. Port of `sgs_tpu/data/ply.py`.
 
 Gaussian PLY layout: x,y,z, nx,ny,nz, f_dc_0..2, f_rest_0..(3K-4), opacity,
 scale_0..2, rot_0..3, all float32 in one binary-little-endian 'vertex'
@@ -8,7 +8,8 @@ element. f_dc / f_rest are flattened channel-major.
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -111,3 +112,87 @@ def load_gaussian_ply(path: str, max_sh_degree: int) -> Dict[str, np.ndarray]:
         "scaling": scaling.astype(np.float32),
         "rotation": rotation.astype(np.float32),
     }
+
+
+def write_ply(path: str, elements: Dict[str, np.ndarray]) -> None:
+    """Write {element_name: structured array} as binary little endian."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np_to_ply = {
+        ("f", 4): "float", ("f", 8): "double",
+        ("i", 4): "int", ("u", 4): "uint",
+        ("i", 2): "short", ("u", 2): "ushort",
+        ("i", 1): "char", ("u", 1): "uchar",
+    }
+    with open(path, "wb") as f:
+        f.write(b"ply\nformat binary_little_endian 1.0\n")
+        for name, arr in elements.items():
+            f.write(f"element {name} {len(arr)}\n".encode())
+            for pname in arr.dtype.names:
+                dt = arr.dtype[pname]
+                f.write(f"property {np_to_ply[(dt.kind, dt.itemsize)]} {pname}\n".encode())
+        f.write(b"end_header\n")
+        for arr in elements.values():
+            f.write(np.ascontiguousarray(arr).astype(arr.dtype.newbyteorder("<")).tobytes())
+
+
+def gaussian_attribute_names(n_rest: int) -> list:
+    names = ["x", "y", "z", "nx", "ny", "nz"]
+    names += [f"f_dc_{i}" for i in range(3)]
+    names += [f"f_rest_{i}" for i in range(3 * n_rest)]
+    names += ["opacity"]
+    names += [f"scale_{i}" for i in range(3)]
+    names += [f"rot_{i}" for i in range(4)]
+    return names
+
+
+def save_gaussian_ply(path: str, xyz: np.ndarray, features_dc: np.ndarray,
+                      features_rest: np.ndarray, opacity: np.ndarray, scaling: np.ndarray,
+                      rotation: np.ndarray) -> None:
+    """Raw parameters (features (N,1,3) and (N,K-1,3), opacity logits,
+    log-scales, quaternions) -> a Gaussian snapshot."""
+    n = xyz.shape[0]
+    n_rest = features_rest.shape[1]
+    f_dc = np.transpose(features_dc, (0, 2, 1)).reshape(n, -1)
+    f_rest = np.transpose(features_rest, (0, 2, 1)).reshape(n, -1)
+    attrs = np.concatenate(
+        [xyz, np.zeros_like(xyz), f_dc, f_rest, opacity, scaling, rotation], axis=1
+    ).astype(np.float32)
+    names = gaussian_attribute_names(n_rest)
+    arr = np.empty(n, dtype=[(a, "<f4") for a in names])
+    for i, a in enumerate(names):
+        arr[a] = attrs[:, i]
+    write_ply(path, {"vertex": arr})
+
+
+def save_point_cloud_ply(path: str, points: np.ndarray, colors_u8: np.ndarray,
+                         normals: np.ndarray = None) -> None:
+    """xyz, nx, ny, nz as float and red, green, blue as uchar."""
+    n = points.shape[0]
+    if normals is None:
+        normals = np.zeros_like(points)
+    dtype = [(a, "<f4") for a in ("x", "y", "z", "nx", "ny", "nz")] + [
+        (a, "u1") for a in ("red", "green", "blue")
+    ]
+    arr = np.empty(n, dtype=dtype)
+    for i, a in enumerate(("x", "y", "z")):
+        arr[a] = points[:, i]
+        arr["n" + a] = normals[:, i]
+    for i, a in enumerate(("red", "green", "blue")):
+        arr[a] = colors_u8[:, i]
+    write_ply(path, {"vertex": arr})
+
+
+def load_point_cloud_ply(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Returns (points, colours in [0, 1], normals)."""
+    v = read_ply(path)["vertex"]
+    pts = np.stack([v["x"], v["y"], v["z"]], axis=1).astype(np.float32)
+    names = v.dtype.names or ()
+    if "red" in names:
+        cols = np.stack([v["red"], v["green"], v["blue"]], axis=1).astype(np.float32) / 255.0
+    else:
+        cols = np.full_like(pts, 0.5)
+    if "nx" in names:
+        normals = np.stack([v["nx"], v["ny"], v["nz"]], axis=1).astype(np.float32)
+    else:
+        normals = np.zeros_like(pts)
+    return pts, cols, normals

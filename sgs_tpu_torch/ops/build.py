@@ -49,8 +49,9 @@ def nvcc_path() -> str:
 class CudaKernel:
     """One CUDA source: its build, its loaded library and its launch count.
 
-    `launches` counts the kernel launches made through `launch`; callers
-    reset it to 0 to count one run.
+    `launches` counts the wrapper calls that launched the source's kernels:
+    a wrapper that launches two kernels for one result passes count=False
+    to the first. Callers reset it to 0 to count one run.
     """
 
     def __init__(self, source: str, functions: Dict[str, Sequence], extra_flags: Iterable[str] = ()):
@@ -114,12 +115,13 @@ class CudaKernel:
             self._load(self._finish_build(self._start_build()))
         return self._lib
 
-    def launch(self, name: str, *args) -> None:
+    def launch(self, name: str, *args, count: bool = True) -> None:
         """Call launcher `name`; raise if it reports a CUDA error."""
         rc = getattr(self.lib(), name)(*args)
         if rc != 0:
             raise RuntimeError(f"{self.source.name}:{name} failed with CUDA error {rc}")
-        self.launches += 1
+        if count:
+            self.launches += 1
 
 
 def build_all(kernels: Sequence[CudaKernel]) -> None:

@@ -1,5 +1,5 @@
-"""Tiled rasterizer front end: binning for the forward pass. Port of the
-binning half of `sgs_tpu/render/tiled.py`.
+"""Tiled rasterizer: binning and the differentiable raster call. Port of
+`sgs_tpu/render/tiled.py` (binning and the custom VJP `_rasterize_core`).
 
 Gaussians are depth-sorted once, stably on (depth, index), with culled
 ones at +inf. Each visible Gaussian expands into tile rows of its 3-sigma
@@ -8,6 +8,14 @@ its alpha can reach 1/255 (`x_tile_interval`). Rows expand into
 (Gaussian, tile) instances emitted in depth-rank order, and one stable
 sort by tile id then leaves every tile's list in front-to-back order,
 which is the order the JAX kernels composite in.
+
+`RasterizeFunction` pairs Kernel A (forward) with Kernel C (backward). The
+backward needs, besides the forward's t_final and n_contrib, the binning's
+tile-sort permutation and each Gaussian's run of instances in the
+depth-rank-major ("presort") order in which they were emitted: Kernel C
+writes each instance's gradient record at its presort position and sums
+every Gaussian's contiguous run in order, so the result is the same bits
+from run to run.
 
 PyTorch runs eagerly, so every array is sized from the real counts: there
 are no static buckets and nothing overflows. The TPU-only machinery of the
@@ -78,10 +86,13 @@ def _expand(counts: torch.Tensor):
 def bin_gaussians(mean2d, conic, opacity, depth, radius, valid,
                   width: int, height: int, tight: bool = True) -> dict:
     """Tile-sorted instance lists. Returns point_list (M,) int32 Gaussian
-    ids, tile_start/tile_end (T,) int32, tiles_x, tiles_y and n_rows (the
-    (Gaussian, tile-row) count). tight=False keeps the full 3-sigma rect
-    rows (the reference binning): the tests use it to show that tight
-    culling leaves the composited image as it is."""
+    ids, tile_start/tile_end (T,) int32, tiles_x, tiles_y, n_rows (the
+    (Gaussian, tile-row) count) and, for the backward, perm (M,) int64
+    (presort position of each tile-sorted instance), rank_start (N+1,)
+    int64 (presort run of each depth rank) and order (N,) int64 (depth
+    rank -> Gaussian id). tight=False keeps the full 3-sigma rect rows
+    (the reference binning): the tests use it to show that tight culling
+    leaves the composited image as it is."""
     dev = mean2d.device
     tiles_x = -(-width // TILE)
     tiles_y = -(-height // TILE)
@@ -118,6 +129,8 @@ def bin_gaussians(mean2d, conic, opacity, depth, radius, valid,
     per_tile = torch.bincount(tile_sorted, minlength=num_tiles)
     tile_end = torch.cumsum(per_tile, 0)
     tile_start = tile_end - per_tile
+    per_rank = torch.bincount(run[inst_row], minlength=order.shape[0])
+    rank_start = torch.cat([per_rank.new_zeros(1), torch.cumsum(per_rank, 0)])
     return {
         "point_list": point_list,
         "tile_start": tile_start.to(torch.int32).contiguous(),
@@ -125,6 +138,9 @@ def bin_gaussians(mean2d, conic, opacity, depth, radius, valid,
         "tiles_x": tiles_x,
         "tiles_y": tiles_y,
         "n_rows": int(row_g.shape[0]),
+        "perm": perm.contiguous(),
+        "rank_start": rank_start.contiguous(),
+        "order": order.contiguous(),
     }
 
 
@@ -138,21 +154,55 @@ def kernel_args(bins: dict, mean2d, conic, opacity, rgb, width: int, height: int
     )
 
 
+class RasterizeFunction(torch.autograd.Function):
+    """Binning and Kernel A forward, Kernel C backward: the counterpart of
+    the custom VJP `_rasterize_core`.
+
+    forward(mean2d, depth, conic, rgb, opacity, radius, valid, bg, width,
+    height, aux) returns the (3, H, W) image color + t_final * bg and puts
+    n_instances, t_final, n_contrib and the bins into the dict `aux`.
+    backward returns gradients for mean2d, conic, rgb, opacity and bg
+    (d bg = sum over pixels of t_final * dC) and None for depth, radius,
+    valid and the static arguments."""
+
+    @staticmethod
+    def forward(ctx, mean2d, depth, conic, rgb, opacity, radius, valid, bg, width, height, aux):
+        bins = bin_gaussians(mean2d, conic, opacity, depth, radius, valid, width, height)
+        args = kernel_args(bins, mean2d, conic, opacity, rgb, width, height)
+        color, t_final, n_contrib = flat_raster.rasterize_tiles(*args)
+        bg32 = bg.to(torch.float32)
+        image = color + t_final[None] * bg32[:, None, None]
+        ctx.save_for_backward(*args[:6], t_final, n_contrib, bg32, bins["perm"],
+                              bins["rank_start"], bins["order"])
+        ctx.size = (width, height)
+        ctx.bg_dtype = bg.dtype
+        aux.update(n_instances=int(bins["point_list"].shape[0]), t_final=t_final,
+                   n_contrib=n_contrib, bins=bins)
+        return image
+
+    @staticmethod
+    def backward(ctx, d_image):
+        (tile_start, tile_end, point_list, xy, conic_op, rgb, t_final, n_contrib, bg,
+         perm, rank_start, order) = ctx.saved_tensors
+        width, height = ctx.size
+        dc = d_image.to(torch.float32).contiguous()
+        grads = flat_raster.rasterize_tiles_backward(
+            tile_start, tile_end, point_list, xy, conic_op, rgb, width, height,
+            t_final, n_contrib, dc, bg, perm, rank_start, order,
+        )
+        d_bg = torch.sum(t_final[None] * dc, dim=(1, 2)).to(ctx.bg_dtype)
+        return (grads[:, 0:2], None, grads[:, 2:5], grads[:, 6:9], grads[:, 5],
+                None, None, d_bg, None, None, None)
+
+
 def rasterize_tiled(mean2d, depth, conic, rgb, opacity, radius, valid, bg,
                     width: int, height: int):
-    """Bin, composite with Kernel A, then add t_final * bg.
+    """Bin, composite with Kernel A, then add t_final * bg; differentiable
+    through Kernel C.
 
     Returns ((3, H, W) image, aux) with aux = {n_instances, t_final,
     n_contrib, bins}."""
-    bins = bin_gaussians(mean2d, conic, opacity, depth, radius, valid, width, height)
-    color, t_final, n_contrib = flat_raster.rasterize_tiles(
-        *kernel_args(bins, mean2d, conic, opacity, rgb, width, height)
-    )
-    image = color + t_final[None] * bg.to(torch.float32)[:, None, None]
-    aux = {
-        "n_instances": int(bins["point_list"].shape[0]),
-        "t_final": t_final,
-        "n_contrib": n_contrib,
-        "bins": bins,
-    }
+    aux: dict = {}
+    image = RasterizeFunction.apply(mean2d, depth, conic, rgb, opacity, radius, valid, bg,
+                                    width, height, aux)
     return image, aux

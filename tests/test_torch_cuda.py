@@ -1,4 +1,4 @@
-"""Kernels A and B on the card against their plain PyTorch versions.
+"""Kernels A, B, C and D on the card against their plain PyTorch versions.
 
 CUDA kernels have no CPU mode, so these tests need an NVIDIA GPU with nvcc
 and skip without one. On the card (no JAX there, so no conftest):
@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from sgs_tpu_torch.core.projection import tile_rect
 from sgs_tpu_torch.ops import flat_raster, ssim
 from sgs_tpu_torch.render import tiled
 
@@ -65,6 +66,60 @@ def test_ssim_kernel_matches_plain(dev, h, w):
     got = float(ssim.ssim_forward(xt, yt))
     assert got == float(ssim.ssim_forward(xt, yt)), "not bitwise repeatable"
     np.testing.assert_allclose(got, float(ssim.ssim_plain(xt, yt)), rtol=1e-5, atol=1e-6)
+
+
+def _raster_case(dev, w, h, seed):
+    """The random scene plus a stack of opaque splats that saturates tile
+    (2, 2), with tile 0 kept empty; binned, composited by Kernel A."""
+    sc = _scene(seed, 2000, w, h, dev)
+    n_stack = 48
+    sc["mean2d"][:n_stack] = torch.tensor([40.0, 40.0], device=dev) + torch.rand(
+        (n_stack, 2), generator=torch.Generator(device=dev).manual_seed(seed), device=dev) * 4 - 2
+    sc["conic"][:n_stack] = torch.tensor([0.03, 0.0, 0.03], device=dev)
+    sc["opacity"][:n_stack] = 0.95
+    sc["radius"][:n_stack] = 18
+    sc["valid"][:n_stack] = True
+    min_x, _, min_y, _ = tile_rect(sc["mean2d"], sc["radius"].float(), -(-w // 16), -(-h // 16))
+    sc["valid"] &= ~((min_x == 0) & (min_y == 0))
+    bins = tiled.bin_gaussians(sc["mean2d"], sc["conic"], sc["opacity"], sc["depth"],
+                               sc["radius"], sc["valid"], w, h)
+    args = tiled.kernel_args(bins, sc["mean2d"], sc["conic"], sc["opacity"], sc["rgb"], w, h)
+    _, t_final, n_contrib = flat_raster.rasterize_tiles(*args)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dc = torch.randn((3, h, w), generator=g, device=dev)
+    bg = torch.rand(3, generator=g, device=dev)
+    counts = bins["tile_end"] - bins["tile_start"]
+    assert int(counts[0]) == 0, "tile 0 should be empty"
+    assert float(t_final[40, 40]) < 1e-2, "the stacked tile should saturate"
+    return (*args, t_final, n_contrib, dc, bg, bins["perm"], bins["rank_start"], bins["order"])
+
+
+@pytest.mark.parametrize("w,h", [(64, 48), (250, 190)])
+def test_raster_backward_kernel_matches_plain(dev, w, h):
+    args = _raster_case(dev, w, h, 1)
+    before = flat_raster.BACKWARD.launches
+    got = flat_raster.rasterize_tiles_backward(*args)
+    assert flat_raster.BACKWARD.launches == before + 1
+    again = flat_raster.rasterize_tiles_backward(*args)
+    assert torch.equal(got, again), "Kernel C is not bitwise repeatable"
+    want = flat_raster.rasterize_tiles_backward_plain(*args)
+    scale = want.abs().amax(dim=0, keepdim=True)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * float(scale.max()))
+
+
+@pytest.mark.parametrize("h,w", [(37, 53), (64, 128), (800, 800)])
+def test_ssim_backward_kernel_matches_plain(dev, h, w):
+    rng = np.random.default_rng(h + 1)
+    x = rng.uniform(0, 1, (3, h, w)).astype(np.float32)
+    y = np.clip(x + rng.normal(0, 0.15, x.shape), 0, 1).astype(np.float32)
+    xt, yt = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    cot = torch.tensor(0.7, device=dev)
+    before = ssim.BACKWARD.launches
+    got = ssim.ssim_backward(xt, yt, cot)
+    assert ssim.BACKWARD.launches == before + 1
+    want = ssim.ssim_backward_plain(xt, yt, cot)
+    for g, wv in zip(got, want):
+        torch.testing.assert_close(g, wv, rtol=1e-5, atol=1e-6 * float(wv.abs().max()))
 
 
 def test_wrappers_refuse_bad_inputs(dev):
