@@ -8,10 +8,15 @@ Phases:
   2. build: the four CUDA sources built cold from `sgs_tpu_torch/csrc/`,
      one nvcc per source, started together;
   3. kernels against their plain PyTorch versions on the card: Kernels A
-     (raster forward) and C (raster backward) on a seeded random scene
-     with an empty tile, a saturated tile and a width that is not a
-     multiple of 16, C also run twice for a bitwise check; Kernels B and
-     D (SSIM forward and backward) at three sizes, B also twice;
+     (raster forward) and C (raster backward), bit for bit, on a seeded
+     random scene with an empty tile, a saturated tile and a width that
+     is not a multiple of 16, and on a scene with one Gaussian covering
+     more than 500 tiles (a long run for C's reduction) and a tile list
+     longer than 1,024 (a long walk); C also run twice for a bitwise
+     check, and A and C run again with the tiles in raster order in place
+     of binning's longest-first schedule, which must give the same bits;
+     Kernels B and D (SSIM forward and backward) at three sizes, B also
+     twice;
   4. the render slice: the port's render and metrics entry points on the
      trained flagship model (assets/flagship/point_cloud.ply) and the
      8-view test split of data/flagship800, held per view to the JAX
@@ -23,14 +28,19 @@ Phases:
      (run in this process) for 10 steps, with the launch counts of A-D
      reset before and read after (each must equal the steps); one step's
      parameter gradients through the kernels are held to the plain path's
-     on the same inputs, and one step is split into its stages by CUDA
-     events;
+     on the same inputs, C equals its plain version bit for bit on the
+     step's inputs, and one step is split into its stages by CUDA events,
+     Kernel C's walk and reduction apart;
   6. training from scratch: 100 iterations from data/flagship800's
      points3d.ply with densification and the test report, which must
      lower the test L1 and change the Gaussian count; the saved PLY is
-     rendered through `python -m sgs_tpu_torch.render`;
+     rendered through `python -m sgs_tpu_torch.render` with the argv that
+     `full_eval.py` passes (`--iteration N -s <scene> -m <model> --quiet
+     --eval --skip_train`);
   7. kernel times against their plain versions, bounds and library calls
-     at the main path's shapes (flagship view 0);
+     at the main path's shapes (flagship view 0), Kernel C's walk and
+     reduction also timed apart, and A and C's walk also with the tiles
+     in raster order (what the longest-first schedule buys);
   8. a `{"kernels": [...]}` line, the device line, and last the result
      line `{"ok": true, "device": {...}}`.
 
@@ -69,7 +79,7 @@ from sgs_tpu_torch.train.__main__ import main as train_main
 from sgs_tpu_torch.train.checkpoint import save_checkpoint
 from sgs_tpu_torch.train.loop import TrainState, eval_render, train_step
 from sgs_tpu_torch.train.optim import AdamState, adam_update, make_lr_dict
-from sgs_tpu_torch.utils.config import OptimizationParams
+from sgs_tpu_torch.utils.config import ModelParams, OptimizationParams, PipelineParams
 
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP_PLY = ROOT / "assets" / "flagship" / "point_cloud.ply"
@@ -94,14 +104,13 @@ SH_DEGREE = 3
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-RASTER_ATOL = 3e-5
 SSIM_RTOL, SSIM_ATOL = 1e-5, 1e-6
 PSNR_BAR, SSIM_BAR = 0.02, 5e-4
-# Kernels C and D against their plain versions: rtol 1e-5 plus an atol of
-# 1e-6 of the largest gradient (the same arithmetic in the same order, up
-# to the last bits of expf against torch.exp); the training step's
-# parameter gradients through the kernels against the plain path's: rtol
-# 1e-4 plus 1e-6 of each field's largest gradient.
+# Kernels A and C equal their plain versions bit for bit (the same
+# arithmetic in the same order, --fmad=false). Kernel D against its plain
+# version: rtol 1e-5 plus an atol of 1e-6 of the largest gradient; the
+# training step's parameter gradients through the kernels against the
+# plain path's: rtol 1e-4 plus 1e-6 of each field's largest gradient.
 BWD_RTOL, BWD_ATOL_SCALE = 1e-5, 1e-6
 GRAD_RTOL, GRAD_ATOL_SCALE = 1e-4, 1e-6
 
@@ -200,17 +209,16 @@ def raster_inputs(sc: dict, width: int, height: int):
 
 
 def compare_raster(args) -> float:
+    """Kernel A against its plain version, bit for bit; returns max |err| (0)."""
     got = flat_raster.rasterize_tiles(*args)
     want = flat_raster.rasterize_tiles_plain(*args)
     torch.cuda.synchronize()
-    err_img = float((got[0] - want[0]).abs().max())
-    err_t = float((got[1] - want[1]).abs().max())
-    if err_img > RASTER_ATOL or err_t > RASTER_ATOL:
-        raise AssertionError(f"Kernel A differs from its plain version: image {err_img}, t_final {err_t}")
-    if not torch.equal(got[2], want[2]):
-        bad = int((got[2] != want[2]).sum())
-        raise AssertionError(f"Kernel A n_contrib differs from its plain version at {bad} pixels")
-    return max(err_img, err_t)
+    for name, g, w in zip(("image", "t_final", "n_contrib"), got, want):
+        if not torch.equal(g, w):
+            bad = int((g != w).sum())
+            raise AssertionError(f"Kernel A {name} differs from its plain version at {bad} pixels, "
+                                 f"max |err| {float((g - w).abs().max())}")
+    return 0.0
 
 
 def ssim_pair(h, w, seed, dev):
@@ -237,7 +245,7 @@ def backward_args(bins, args, dev, seed):
     """Kernel C's arguments for a binned scene and a seeded cotangent."""
     _, t_final, n_contrib = flat_raster.rasterize_tiles(*args)
     g = torch.Generator(device=dev).manual_seed(seed)
-    dc = torch.randn((3, args[7], args[6]), generator=g, device=dev)
+    dc = torch.randn((3, args[6], args[5]), generator=g, device=dev)
     bg = torch.rand(3, generator=g, device=dev)
     return (*args, t_final, n_contrib, dc, bg, bins["perm"], bins["rank_start"], bins["order"])
 
@@ -250,16 +258,52 @@ def rel_err(got, want, atol_scale):
 
 
 def compare_raster_backward(bargs) -> float:
+    """Kernel C twice and against its plain version, bit for bit; returns
+    max |err| (0)."""
     got = flat_raster.rasterize_tiles_backward(*bargs)
     again = flat_raster.rasterize_tiles_backward(*bargs)
     want = flat_raster.rasterize_tiles_backward_plain(*bargs)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
         raise AssertionError("Kernel C is not bitwise repeatable")
-    err, ok = rel_err(got, want, BWD_ATOL_SCALE)
-    if not ok or not torch.isfinite(got).all():
-        raise AssertionError(f"Kernel C differs from its plain version: max |err| {err}")
-    return err
+    if not torch.equal(got, want) or not torch.isfinite(got).all():
+        bad = int((got != want).sum())
+        raise AssertionError(f"Kernel C differs from its plain version at {bad} elements: "
+                             f"max |err| {float((got - want).abs().max())}")
+    return 0.0
+
+
+def compare_schedules(bins, args, bargs) -> None:
+    """A and C with the tiles in raster order give the bits they give with
+    binning's longest-first schedule."""
+    raster_order = torch.arange(args[3].shape[0], dtype=torch.int32, device=args[3].device)
+    alt = (*args[:3], raster_order, *args[4:])
+    for g, w in zip(flat_raster.rasterize_tiles(*alt), flat_raster.rasterize_tiles(*args)):
+        if not torch.equal(g, w):
+            raise AssertionError("Kernel A depends on the tile schedule")
+    got = flat_raster.rasterize_tiles_backward(*alt, *bargs[7:])
+    if not torch.equal(got, flat_raster.rasterize_tiles_backward(*bargs)):
+        raise AssertionError("Kernel C depends on the tile schedule")
+
+
+def long_run_scene(dev, width=512, height=384, seed=2):
+    """1,500 random splats, one wide splat over most of the image (a run of
+    more than 500 instances) and 1,100 faint broad splats stacked on one
+    tile (a list longer than 1,024 that never saturates)."""
+    sc = random_raster_scene(dev, n=1500, width=width, height=height, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    n_stack = 1100
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    mean2d = np.concatenate([[[width / 2, height / 2]],
+                             np.array([5 * TILE + 8.0, 4 * TILE + 8.0]) + rng.uniform(-3, 3, (n_stack, 2))])
+    conic = np.concatenate([[[1e-4, 0.0, 1.5e-4]], np.tile([0.002, 0.0, 0.002], (n_stack, 1))])
+    opac = np.concatenate([[0.6], rng.uniform(0.0045, 0.006, n_stack)])
+    radius = np.concatenate([[300], np.full(n_stack, 68)]).astype(np.int32)
+    extra = dict(mean2d=f(mean2d), depth=f(rng.uniform(0.5, 10.0, n_stack + 1)), conic=f(conic),
+                 rgb=f(rng.uniform(0, 1, (n_stack + 1, 3))), opacity=f(opac),
+                 radius=torch.as_tensor(radius, device=dev),
+                 valid=torch.ones(n_stack + 1, dtype=torch.bool, device=dev))
+    return {k: torch.cat([sc[k], extra[k]]) for k in sc}
 
 
 def compare_ssim_backward(x, y, cot) -> float:
@@ -289,11 +333,28 @@ def phase_kernels(dev) -> dict:
     if not int(centre) < int(counts[sat_tile]) or float(t_final[6 * TILE + 8, 8 * TILE + 8]) > 1e-2:
         raise AssertionError("the stacked tile did not saturate")
     say(f"[3 kernels] A raster forward: {width}x{height}, "
-        f"{bins['point_list'].shape[0]} instances, {int((counts == 0).sum())} empty tiles, "
-        f"max |err| {err_a:.3g} (atol {RASTER_ATOL}), n_contrib equal")
-    err_c = compare_raster_backward(backward_args(bins, args, dev, 1))
-    say(f"[3 kernels] C raster backward: same scene, max |err| {err_c:.3g} "
-        f"(rtol {BWD_RTOL}, atol {BWD_ATOL_SCALE} x max), bitwise repeatable")
+        f"{bins['point_list'].shape[0]} instances, {int((counts == 0).sum())} empty tiles: "
+        f"equal to the plain version bit for bit, n_contrib included")
+    bargs = backward_args(bins, args, dev, 1)
+    err_c = compare_raster_backward(bargs)
+    compare_schedules(bins, args, bargs)
+    say("[3 kernels] C raster backward: same scene, equal to the plain version bit for bit, "
+        "bitwise repeatable; A and C give the same bits with the tiles in raster order")
+
+    width, height = 512, 384
+    bins, args = raster_inputs(long_run_scene(dev, width, height), width, height)
+    longest_run = int((bins["rank_start"][1:] - bins["rank_start"][:-1]).max())
+    longest_list = int((bins["tile_end"] - bins["tile_start"]).max())
+    if longest_run < 500 or longest_list <= 1024:
+        raise AssertionError(f"long-run scene: longest run {longest_run}, longest list {longest_list}")
+    err_a = max(err_a, compare_raster(args))
+    bargs = backward_args(bins, args, dev, 3)
+    err_c = max(err_c, compare_raster_backward(bargs))
+    compare_schedules(bins, args, bargs)
+    say(f"[3 kernels] long runs {width}x{height}: {bins['point_list'].shape[0]} instances, "
+        f"longest run {longest_run} instances, longest tile list {longest_list}, deepest pixel "
+        f"{int(bargs[8].max())}: A and C equal to their plain versions bit for bit, C repeatable, "
+        f"both independent of the schedule")
     errs_b, errs_d = [], []
     for i, (h, w) in enumerate([(37, 53), (64, 128), (800, 800)]):
         x, y = ssim_pair(h, w, i, dev)
@@ -310,8 +371,10 @@ def phase_slice(dev) -> dict:
     results = json.loads(FLAGSHIP_RESULTS.read_text())[METHOD]
     reset_counts()
     t0 = time.perf_counter()
-    render_sets(str(SMOKE_DIR), str(FLAGSHIP_SCENE), ply=str(FLAGSHIP_PLY), iteration=15000,
-                white_background=WHITE_BACKGROUND, sh_degree=SH_DEGREE, skip_train=True, device=dev)
+    dataset = ModelParams(sh_degree=SH_DEGREE, source_path=str(FLAGSHIP_SCENE),
+                          model_path=str(SMOKE_DIR), white_background=WHITE_BACKGROUND, eval=True)
+    render_sets(dataset, 15000, PipelineParams(), skip_train=True, skip_test=False,
+                ply=str(FLAGSHIP_PLY), device=dev)
     got = evaluate([str(SMOKE_DIR)], device=dev)[str(SMOKE_DIR)][METHOD]
     torch.cuda.synchronize()
     launches = read_counts()
@@ -493,8 +556,8 @@ def phase_step(dev, model, view) -> dict:
     err_d = compare_ssim_backward(img, gt, cot)
     say(f"[5 step] view 0: gradients through the kernels vs the plain path, max |err| / field max: "
         + ", ".join(f"{f} {v:.2e}" for f, v in worst.items())
-        + f" (rtol {GRAD_RTOL}, atol {GRAD_ATOL_SCALE} x max); C max |err| {err_c:.3g}, "
-          f"D max |err| {err_d:.3g}")
+        + f" (rtol {GRAD_RTOL}, atol {GRAD_ATOL_SCALE} x max); C on the step's inputs equal to "
+          f"its plain version bit for bit, D max |err| {err_d:.3g}")
 
     # stages of one step, CUDA events, means over the reps
     leaves = {f: getattr(model, f).detach().requires_grad_(True) for f in PARAM_FIELDS}
@@ -504,7 +567,10 @@ def phase_step(dev, model, view) -> dict:
     stages["binning"] = time_cuda(lambda: raster_inputs(p, w, h), 5)
     stages["A"] = time_cuda(lambda: flat_raster.rasterize_tiles(*args), 10)
     stages["B"] = time_cuda(lambda: ssim_ops.ssim_forward(img, gt), 20)
-    stages["C+reduction"] = time_cuda(lambda: flat_raster.rasterize_tiles_backward(*bargs), 10)
+    inst = torch.empty((bargs[2].shape[0], flat_raster.N_GRADS), device=dev)
+    stages["C walk"] = time_cuda(lambda: flat_raster.raster_backward_walk(bargs, inst), 10)
+    stages["C reduction"] = time_cuda(lambda: flat_raster.reduce_runs(inst, bargs[12], bargs[13]), 10)
+    c_ms = time_cuda(lambda: flat_raster.rasterize_tiles_backward(*bargs), 10)
     stages["D"] = time_cuda(lambda: ssim_ops.ssim_backward(img, gt, cot), 20)
     pg = project_and_shade(cam, grad_model.render_inputs(SH_DEGREE))
     outs = [pg["mean2d"], pg["conic"], pg["rgb"], pg["opacity"]]
@@ -520,10 +586,10 @@ def phase_step(dev, model, view) -> dict:
     step_ms = time_cuda(lambda: train_step(state, cam, gt, bg, lrs, SH_DEGREE), 5)
     say(f"[5 step] one training step at {model.num_alive} Gaussians, 800x800: {step_ms:.3f} ms; "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
-        + f" ms (sum {sum(stages.values()):.3f} ms)")
+        + f" ms (sum {sum(stages.values()):.3f} ms); C as one wrapper call {c_ms:.3f} ms")
     profile_steps(lambda: train_step(state, cam, gt, bg, lrs, SH_DEGREE))
     return {"bargs": bargs, "img": img, "gt": gt, "cot": cot, "C": err_c, "D": err_d,
-            "c_ms": stages["C+reduction"], "d_ms": stages["D"], "stages": stages, "step_ms": step_ms}
+            "c_ms": c_ms, "d_ms": stages["D"], "stages": stages, "step_ms": step_ms}
 
 
 def profile_steps(step, n: int = 5) -> None:
@@ -578,7 +644,9 @@ def phase_scratch(dev) -> None:
         raise AssertionError(f"test L1 did not fall: {l1_0} at {it0}, {l1_1} at {it1}")
     if int(n_1) == n_init or not densified or not nf:
         raise AssertionError(f"no densify ({densified}), count {n_init} -> {n_1}, report {nf}")
-    run_cli(render_main, ["-m", SCRATCH_DIR, "--skip_train", "--device", dev.type])
+    # full_eval.py's render argv
+    run_cli(render_main, ["--iteration", SCRATCH_ITERS, "-s", FLAGSHIP_SCENE, "-m", SCRATCH_DIR,
+                          "--quiet", "--eval", "--skip_train", "--device", dev.type])
     renders = sorted((SCRATCH_DIR / "test" / f"ours_{SCRATCH_ITERS}" / "renders").glob("*.png"))
     got = evaluate([str(SCRATCH_DIR)], device=dev)[str(SCRATCH_DIR)][f"ours_{SCRATCH_ITERS}"]
     if len(renders) != 8 or abs(got["PSNR"] - float(psnr_1)) > 0.5:
@@ -624,10 +692,11 @@ def phase_timing(dev, errs: dict, launches: dict, views, step: dict) -> list:
     _, _, n_contrib = flat_raster.rasterize_tiles_plain(*args)
     torch.cuda.synchronize()
     plain_a_ms = (time.perf_counter() - t0) * 1e3
-    n = args[3].shape[0]
+    n = args[4].shape[0]
     m = args[2].shape[0]
-    hw = args[6] * args[7]
-    a_bytes = 4 * m + 36 * n + 8 * args[0].shape[0] + 20 * hw
+    hw = args[5] * args[6]
+    # point_list, the 48-byte records, tile ranges and schedule, 20 bytes out per pixel
+    a_bytes = 4 * m + 4 * flat_raster.REC_WIDTH * n + 12 * args[0].shape[0] + 20 * hw
     a_bound, a_by = bound_ms(a_bytes, flat_raster.OPS_PER_PAIR * float(n_contrib.sum()))
 
     q, gt = first["q"], first["gt"]
@@ -646,11 +715,20 @@ def phase_timing(dev, errs: dict, launches: dict, views, step: dict) -> list:
     flat_raster.rasterize_tiles_backward_plain(*bargs)
     torch.cuda.synchronize()
     plain_c_ms = (time.perf_counter() - t0) * 1e3
-    n, m = bargs[3].shape[0], bargs[2].shape[0]
-    hw = bargs[6] * bargs[7]
-    c_bytes = (4 * m + 8 * m + 8 * bargs[0].shape[0] + 36 * n + 20 * hw + 12
-               + 8 * (n + 1) + 8 * n + 4 * flat_raster.N_GRADS * n)
-    c_bound, c_by = bound_ms(c_bytes, flat_raster.OPS_PER_PAIR_BWD * float(bargs[9].sum()))
+    n, m = bargs[4].shape[0], bargs[2].shape[0]
+    hw = bargs[5] * bargs[6]
+    grad_bytes = 4 * flat_raster.N_GRADS
+    # walk: point_list, perm, tile ranges and schedule, records, t_final,
+    # n_contrib and dC per pixel, bg in; the instance gradients out.
+    # Reduction: the instance gradients, rank starts and order in; the
+    # Gaussian gradients out. C as a whole: the walk's inputs plus the
+    # reduction's rank starts and order in, the Gaussian gradients out.
+    walk_in = (12 * m + 12 * bargs[0].shape[0] + 4 * flat_raster.REC_WIDTH * n + 20 * hw + 12)
+    walk_ops = flat_raster.OPS_PER_PAIR_BWD * float(bargs[8].sum())
+    walk_bound = bound_ms(walk_in + grad_bytes * m, walk_ops)
+    reduce_bound = bound_ms(grad_bytes * m + 8 * (n + 1) + 8 * n + grad_bytes * n,
+                            flat_raster.N_GRADS * m)
+    c_bound, c_by = bound_ms(walk_in + 8 * (n + 1) + 8 * n + grad_bytes * n, walk_ops)
     img, sgt, cot = step["img"], step["gt"], step["cot"]
     plain_d_ms = time_cuda(lambda: ssim_ops.ssim_backward_plain(img, sgt, cot), 3)
     xg = img.clone().requires_grad_(True)
@@ -661,6 +739,24 @@ def phase_timing(dev, errs: dict, launches: dict, views, step: dict) -> list:
         f"conv2d SSIM {lib_b_ms:.3f} ms (|d| {lib_err:.2e}); kernel C {step['c_ms']:.3f} ms, "
         f"plain C {plain_c_ms:.3f} ms; kernel D {step['d_ms']:.3f} ms, plain D {plain_d_ms:.3f} ms, "
         f"conv2d SSIM backward {lib_d_ms:.3f} ms")
+    # what the longest-first tile schedule buys: the same kernels with the
+    # tiles handed to blocks in raster order (the same bits, phase 3)
+    raster_order = torch.arange(args[3].shape[0], dtype=torch.int32, device=dev)
+    a_raster = (*args[:3], raster_order, *args[4:])
+    c_raster = (*bargs[:3], raster_order, *bargs[4:])
+    inst = torch.empty((m, flat_raster.N_GRADS), device=dev)
+    order_ms = {"A": time_cuda(lambda: flat_raster.rasterize_tiles(*args), 20),
+                "A raster order": time_cuda(lambda: flat_raster.rasterize_tiles(*a_raster), 20),
+                "C walk": time_cuda(lambda: flat_raster.raster_backward_walk(bargs, inst), 20),
+                "C walk raster order": time_cuda(lambda: flat_raster.raster_backward_walk(c_raster, inst), 20)}
+    say("[7 timing] view 0, tile order: " + ", ".join(f"{k} {v:.4f} ms" for k, v in order_ms.items()))
+    st = step["stages"]
+    say(f"[7 timing] view 0, kernel C apart: walk {st['C walk']:.4f} ms (bound {walk_bound[0]:.4f} ms, "
+        f"{walk_bound[1]}), reduction {st['C reduction']:.4f} ms (bound {reduce_bound[0]:.4f} ms, "
+        f"{reduce_bound[1]}); {m} instances, {n} depth ranks, "
+        f"{int((bargs[12][1:] == bargs[12][:-1]).sum())} empty runs, longest run "
+        f"{int((bargs[12][1:] - bargs[12][:-1]).max())}, "
+        f"{float(bargs[8].sum()):.0f} instance-pixel pairs below n_contrib")
     return [
         {"name": "flat_raster_forward", "route": "cuda", "source": "sgs_tpu_torch/csrc/flat_raster.cu",
          "replaces": "sgs_tpu/ops/pallas/flat_raster.py:462", "launches": launches["A"],

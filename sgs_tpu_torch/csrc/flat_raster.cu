@@ -1,23 +1,33 @@
-// Raster forward: front-to-back alpha compositing of each 16x16 tile's
-// depth-ordered Gaussian list, one 256-thread block per tile, one thread
-// per pixel.
+// Raster forward (Kernel A): front-to-back alpha compositing of each 16x16
+// tile's depth-ordered Gaussian list, one 256-thread block per tile, one
+// thread per pixel.
 //
 // Replaces the TPU kernel sgs_tpu/ops/pallas/flat_raster.py::forward_flat
 // (_fwd_kernel_body). The TPU version packs instances into a transposed
 // (REC, slots) operand, walks 64-instance chunks with a Hillis-Steele
 // cumprod and sums colours on the MXU; those are TPU layout devices and
 // have no counterpart here. This is the classic per-tile CUDA design:
-// the block loads batches of 256 instance records (mean2d, conic,
-// opacity, rgb) into shared memory by Gaussian id, then every thread
-// walks them in order until its transmittance latch trips.
+// the block stages batches of 256 instance records in shared memory by
+// Gaussian id, then every thread walks them in order until its
+// transmittance latch trips.
 //
 // Bound: at the flagship shapes the kernel is bound by operations (about
 // 26 f32 operations per instance-pixel pair walked, exp counted as one)
 // rather than by bytes (each instance record is read once per tile,
-// 40 bytes, and each pixel writes 20 bytes). The design keeps the whole
+// 48 bytes, and each pixel writes 20 bytes). The design keeps the whole
 // per-pixel state in registers and the records in shared memory, and
 // the block leaves as soon as every pixel is saturated
-// (__syncthreads_count).
+// (__syncthreads_count). What it does about the time lost around the
+// walk:
+//   - each Gaussian is one 48-byte record (conic, opacity | mean, r, g |
+//     b, pad; built by render/tiled.py::kernel_args), staged with three
+//     16-byte cp.async copies into a double buffer: batch b + 1 is in
+//     flight while batch b is walked, and the ids of batch b + 2 are
+//     loaded a batch ahead, so the gather by id overlaps the walk;
+//   - block b works on tile schedule[b], the tiles by list length longest
+//     first (binning's order), so the longest lists start first instead
+//     of trailing the grid. Each tile's arithmetic is the same in any
+//     order, so no output bit depends on the schedule.
 //
 // Numerics follow the JAX kernel term by term (dx = mean - pixel, the
 // factored quadratic, alpha = min(0.99, op * exp(power)) used only if
@@ -37,31 +47,50 @@ namespace {
 
 constexpr int kTile = 16;
 constexpr int kBlock = kTile * kTile;
+constexpr int kRecVecs = 3;  // float4s per record
 constexpr float kAlphaMax = 0.99f;
 constexpr float kAlphaMin = (float)(1.0 / 255.0);
 constexpr float kTransmittanceEps = 1e-4f;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+__device__ __forceinline__ void stage_record(float4* dst, const float4* __restrict__ records, int g) {
+  if (g >= 0) {
+    const float4* src = records + (int64_t)g * kRecVecs;
+#pragma unroll
+    for (int k = 0; k < kRecVecs; ++k) cp_async16(dst + k, src + k);
+  }
+  cp_async_commit();
+}
 
 __global__ void __launch_bounds__(kBlock)
 flat_raster_forward_kernel(
     const int32_t* __restrict__ tile_start,   // (T,)
     const int32_t* __restrict__ tile_end,     // (T,)
     const int32_t* __restrict__ point_list,   // (M,) Gaussian ids, tile-sorted
-    const float2* __restrict__ xy,            // (N,) pixel-space means
-    const float4* __restrict__ conic_op,      // (N,) conic a, b, c, opacity
-    const float* __restrict__ rgb,            // (N, 3)
+    const int32_t* __restrict__ schedule,     // (T,) tile of each block
+    const float4* __restrict__ records,       // (N, 3) float4 records
     int width, int height, int tiles_x,
     float* __restrict__ color,                // (3, H, W)
     float* __restrict__ t_final,              // (H, W)
     int32_t* __restrict__ n_contrib)          // (H, W)
 {
-  __shared__ float2 s_xy[kBlock];
-  __shared__ float4 s_co[kBlock];
-  __shared__ float s_rgb[3 * kBlock];
+  __shared__ float4 s_rec[2][kBlock][kRecVecs];
 
-  const int tile = blockIdx.y * tiles_x + blockIdx.x;
+  const int tile = schedule[blockIdx.x];
   const int t = threadIdx.x;
-  const int px = blockIdx.x * kTile + (t % kTile);
-  const int py = blockIdx.y * kTile + (t / kTile);
+  const int px = (tile % tiles_x) * kTile + (t % kTile);
+  const int py = (tile / tiles_x) * kTile + (t / kTile);
   const bool inside = px < width && py < height;
   const float fx = (float)px;
   const float fy = (float)py;
@@ -74,26 +103,26 @@ flat_raster_forward_kernel(
   int walked = 0;
   int last = 0;
 
-  for (int base = start; base < end; base += kBlock) {
-    // every thread takes part in the loads, so the block leaves together
+  // batch 0 in flight, the ids of batch 1 in a register
+  stage_record(s_rec[0][t], records, start + t < end ? point_list[start + t] : -1);
+  int g_next = start + kBlock + t < end ? point_list[start + kBlock + t] : -1;
+
+  for (int base = start, buf = 0; base < end; base += kBlock, buf ^= 1) {
+    // batch b + 1 into the other buffer (consumed at the end of the last
+    // iteration), then the ids of batch b + 2
+    stage_record(s_rec[buf ^ 1][t], records, g_next);
+    const int i2 = base + 2 * kBlock + t;
+    g_next = i2 < end ? point_list[i2] : -1;
+    cp_async_wait<1>();  // this thread's copies of batch b have landed
+    // the barrier publishes every thread's copies; the block leaves together
     if (__syncthreads_count(done) == kBlock) break;
-    const int i = base + t;
-    if (i < end) {
-      const int g = point_list[i];
-      s_xy[t] = xy[g];
-      s_co[t] = conic_op[g];
-      s_rgb[3 * t + 0] = rgb[3 * g + 0];
-      s_rgb[3 * t + 1] = rgb[3 * g + 1];
-      s_rgb[3 * t + 2] = rgb[3 * g + 2];
-    }
-    __syncthreads();
     const int batch = min(kBlock, end - base);
     for (int j = 0; !done && j < batch; ++j) {
       ++walked;
-      const float2 m = s_xy[j];
-      const float4 co = s_co[j];
-      const float dx = m.x - fx;
-      const float dy = m.y - fy;
+      const float4 co = s_rec[buf][j][0];
+      const float4 mc = s_rec[buf][j][1];
+      const float dx = mc.x - fx;
+      const float dy = mc.y - fy;
       const float power = (-0.5f * co.x * dx - co.y * dy) * dx + (-0.5f * co.z) * dy * dy;
       if (power > 0.0f) continue;
       const float alpha = fminf(kAlphaMax, co.w * expf(power));
@@ -104,13 +133,15 @@ flat_raster_forward_kernel(
         continue;
       }
       const float w = T * alpha;
-      c0 += s_rgb[3 * j + 0] * w;
-      c1 += s_rgb[3 * j + 1] * w;
-      c2 += s_rgb[3 * j + 2] * w;
+      c0 += mc.z * w;
+      c1 += mc.w * w;
+      c2 += s_rec[buf][j][2].x * w;
       T = test_t;
       last = walked;
     }
+    __syncthreads();  // batch b is consumed before its buffer is refilled
   }
+  cp_async_wait<0>();
 
   if (inside) {
     const int pix = py * width + px;
@@ -126,17 +157,14 @@ flat_raster_forward_kernel(
 }  // namespace
 
 extern "C" int flat_raster_forward(
-    void* tile_start, void* tile_end, void* point_list,
-    void* xy, void* conic_op, void* rgb,
+    void* tile_start, void* tile_end, void* point_list, void* schedule, void* records,
     int width, int height, int tiles_x, int tiles_y,
     void* color, void* t_final, void* n_contrib, void* stream)
 {
   if (tiles_x > 0 && tiles_y > 0) {
-    dim3 grid(tiles_x, tiles_y);
-    flat_raster_forward_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+    flat_raster_forward_kernel<<<tiles_x * tiles_y, kBlock, 0, (cudaStream_t)stream>>>(
         (const int32_t*)tile_start, (const int32_t*)tile_end, (const int32_t*)point_list,
-        (const float2*)xy, (const float4*)conic_op, (const float*)rgb,
-        width, height, tiles_x,
+        (const int32_t*)schedule, (const float4*)records, width, height, tiles_x,
         (float*)color, (float*)t_final, (int32_t*)n_contrib);
   }
   return (int)cudaGetLastError();

@@ -8,11 +8,12 @@
 // matmuls on the MXU and CSR row tables; those are TPU layout devices and
 // have no counterpart here.
 //
-// Launch 1 (flat_raster_backward_kernel): one 256-thread block per 16x16
-// tile, one thread per pixel, as in the forward kernel. The block walks
-// its tile's depth-ordered list back to front, from the largest n_contrib
-// of its pixels down to 0, in shared-memory batches of kBatch records.
-// Each pixel starts from its forward state: T = t_final and the suffix
+// Launch 1 (flat_raster_backward_kernel, "the walk"): one 256-thread block
+// per 16x16 tile, one thread per pixel, as in the forward kernel; block b
+// works on tile schedule[b] (longest list first). The block walks its
+// tile's depth-ordered list back to front, from the largest n_contrib of
+// its pixels down to 0, in shared-memory batches of kBatch records. Each
+// pixel starts from its forward state: T = t_final and the suffix
 // S = dC . (colour composited behind the current instance), which starts
 // at t_final * (dC . bg), so the background enters dL/dalpha. For each
 // instance at a position below its n_contrib it recomputes power and
@@ -24,26 +25,43 @@
 //   g_power   = q dL/dalpha  (q = opacity * exp(power)),
 // and the 9 per-pixel terms g_power, dx g_power, dy g_power, dx dx g_power,
 // dx dy g_power, dy dy g_power and T_i alpha dC. Each term is summed over
-// the tile's 256 pixels in a fixed order (xor shuffles inside each warp,
-// then the 8 warps in order), and one thread per instance turns the sums
-// into the 9 gradient components [d mean x, d mean y, d conic a, b, c,
-// d opacity, d r, g, b] and writes them at the instance's depth-rank-major
+// the tile's 256 pixels in a fixed order (the xor butterfly inside each
+// warp, then the 8 warps in order), and the block turns the sums into the
+// 9 gradient components [d mean x, d mean y, d conic a, b, c, d opacity,
+// d r, g, b] and writes them at the instance's depth-rank-major
 // ("presort") position perm[i]. Instances past the tile's largest
 // n_contrib get zeros.
 //
-// Launch 2 (flat_raster_reduce_kernel): one thread per depth rank. In
-// presort order every Gaussian's instances are contiguous, so the thread
-// sums its run [rank_start[j], rank_start[j + 1]) in order and writes the
-// result to Gaussian order[j]. No float atomics: two runs give the same
+// Launch 2 (flat_raster_reduce_kernel, "the reduction"): one warp per depth
+// rank. In presort order every Gaussian's instances are contiguous; lane l
+// sums elements l, l + 32, ... of the run in order, so neighbouring lanes
+// read neighbouring rows, and the 32 lane sums meet in the xor-butterfly
+// order. The order depends only on the run's length; an empty run costs
+// one write of zeros. No float atomics anywhere: two runs give the same
 // bits.
 //
 // Bound: like the forward, the walk is bound by operations (about 50 f32
 // operations per instance-pixel pair it walks, counting the recomputed
-// forward terms and the 9 reduction adds) rather than bytes (40 bytes of
+// forward terms and the 9 reduction adds) rather than bytes (48 bytes of
 // record per instance and tile, 20 bytes per pixel, 36 bytes written per
-// instance). The design keeps the per-pixel state in registers, the
-// records in shared memory, and does the block reduction with shuffles;
-// the per-warp partials go through shared memory once per batch.
+// instance); the reduction is bound by bytes (36 read per instance, 36
+// written per Gaussian). What the design does against the time lost in
+// the walk:
+//   - the 9 warp sums are a reduce-scatter: 12 shuffles instead of 9 x 5,
+//     each lane ending with one term's sum. The pairs added are the
+//     butterfly's, and f32 addition commutes, so the bits are the
+//     butterfly's;
+//   - a warp in which no pixel included the instance (__any_sync) skips
+//     the shuffles and writes +0 partials, which is what the butterfly of
+//     +0 terms gives;
+//   - 64 records are staged per pair of barriers (32 before), and the
+//     combine of the 8 warps' partials and the 9 stores per instance are
+//     spread over all 256 threads (one warp before);
+//   - the longest lists start first (schedule).
+// `python -m sgs_tpu_torch.tools.walk_ablation` times the walk with each
+// of these undone, and with a candidate that was measured and left out:
+// skipping the pair math in warps whose pixels all lie past the instance
+// cost more in branches than it saved.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,20 +71,75 @@ namespace {
 constexpr int kTile = 16;
 constexpr int kBlock = kTile * kTile;
 constexpr int kWarps = kBlock / 32;
-constexpr int kBatch = 32;
+constexpr int kBatch = 64;
 constexpr int kTerms = 9;
+constexpr int kRecVecs = 3;  // float4s per record
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kAlphaMax = 0.99f;
 constexpr float kAlphaMin = (float)(1.0 / 255.0);
+
+// The term whose 32-lane sum `reduce_scatter9` leaves in lane 2i and
+// 2i + 1 (-1: none). Lanes 0-15 end with terms 0-4, lanes 16-31 with 5-8.
+__constant__ int8_t kOwner[16] = {0, 1, 2, -1, 3, 4, -1, -1, 5, 6, 7, -1, 8, -1, -1, -1};
+
+// One step of the reduce-scatter: the lane keeps half of its n slots (the
+// upper half when `upper`), sends the other half to the lane `off` away
+// and adds what it receives. Slots past n hold +0.
+template <int kIn, int kOut>
+__device__ __forceinline__ void scatter_step(const float (&in)[kIn], float (&out)[kOut], bool upper,
+                                             int off) {
+#pragma unroll
+  for (int i = 0; i < kOut; ++i) {
+    const float lo = in[i];
+    const float hi = i + kOut < kIn ? in[i + kOut] : 0.0f;
+    const float other = __shfl_xor_sync(kFull, upper ? lo : hi, off);
+    out[i] = (upper ? hi : lo) + other;
+  }
+}
+
+// The 32-lane sums of 9 values in 12 shuffles; lane l returns the sum of
+// term kOwner[l >> 1]. Each sum pairs lanes as the xor butterfly does
+// (l with l ^ 16, then ^ 8, ^ 4, ^ 2, ^ 1), so it has the butterfly's bits.
+__device__ __forceinline__ float reduce_scatter9(const float (&v)[kTerms], int lane) {
+  float a[5], b[3], c[2], d[1];
+  scatter_step<9, 5>(v, a, lane & 16, 16);
+  scatter_step<5, 3>(a, b, lane & 8, 8);
+  scatter_step<3, 2>(b, c, lane & 4, 4);
+  scatter_step<2, 1>(c, d, lane & 2, 2);
+  return d[0] + __shfl_xor_sync(kFull, d[0], 1);
+}
+
+// The part of a pixel's step that does not depend on T and S: Kernel A's
+// power and alpha, the include test (`reach`: the position is below the
+// pixel's n_contrib) and dC . colour.
+struct Front {
+  float dx, dy, q, alpha, dcc;
+  bool included;
+};
+
+__device__ __forceinline__ Front front(const float4 (&rec)[kRecVecs], float fx, float fy, float d0,
+                                       float d1, float d2, bool reach) {
+  const float4 co = rec[0];
+  const float4 mc = rec[1];
+  Front f;
+  f.dx = mc.x - fx;
+  f.dy = mc.y - fy;
+  const float power = (-0.5f * co.x * f.dx - co.y * f.dy) * f.dx + (-0.5f * co.z) * f.dy * f.dy;
+  f.q = co.w * expf(power);
+  f.alpha = fminf(kAlphaMax, f.q);
+  f.included = reach && power <= 0.0f && f.alpha >= kAlphaMin;
+  f.dcc = d0 * mc.z + d1 * mc.w + d2 * rec[2].x;
+  return f;
+}
 
 __global__ void __launch_bounds__(kBlock)
 flat_raster_backward_kernel(
     const int32_t* __restrict__ tile_start,   // (T,)
     const int32_t* __restrict__ tile_end,     // (T,)
     const int32_t* __restrict__ point_list,   // (M,) Gaussian ids, tile-sorted
+    const int32_t* __restrict__ schedule,     // (T,) tile of each block
     const int64_t* __restrict__ perm,         // (M,) presort position of each instance
-    const float2* __restrict__ xy,            // (N,)
-    const float4* __restrict__ conic_op,      // (N,)
-    const float* __restrict__ rgb,            // (N, 3)
+    const float4* __restrict__ records,       // (N, 3) float4 records
     const float* __restrict__ t_final,        // (H, W)
     const int32_t* __restrict__ n_contrib,    // (H, W)
     const float* __restrict__ dc,             // (3, H, W) image cotangent
@@ -74,21 +147,21 @@ flat_raster_backward_kernel(
     int width, int height, int tiles_x,
     float* __restrict__ inst_grads)           // (M, 9), presort order
 {
-  __shared__ float2 s_xy[kBatch];
-  __shared__ float4 s_co[kBatch];
-  __shared__ float s_rgb[kBatch][3];
+  __shared__ float4 s_rec[kBatch][kRecVecs];
   __shared__ float s_part[kBatch][kWarps][kTerms];
   __shared__ int s_max;
 
-  const int tile = blockIdx.y * tiles_x + blockIdx.x;
+  const int tile = schedule[blockIdx.x];
   const int t = threadIdx.x;
   const int lane = t % 32;
   const int warp = t / 32;
-  const int px = blockIdx.x * kTile + (t % kTile);
-  const int py = blockIdx.y * kTile + (t / kTile);
+  const int px = (tile % tiles_x) * kTile + (t % kTile);
+  const int py = (tile / tiles_x) * kTile + (t / kTile);
   const bool inside = px < width && py < height;
   const float fx = (float)px;
   const float fy = (float)py;
+  const int owner = kOwner[lane >> 1];
+  const bool writes = owner >= 0 && (lane & 1) == 0;
 
   const int start = tile_start[tile];
   const int end = tile_end[tile];
@@ -106,10 +179,11 @@ flat_raster_backward_kernel(
     d2 = dc[2 * plane + pix];
   }
   float S = T * (d0 * bg[0] + d1 * bg[1] + d2 * bg[2]);
+  const int warp_last = __reduce_max_sync(kFull, last);
 
   if (t == 0) s_max = 0;
   __syncthreads();
-  if (last > 0) atomicMax(&s_max, last);
+  if (lane == 0 && warp_last > 0) atomicMax(&s_max, warp_last);
   __syncthreads();
   const int max_last = s_max;
 
@@ -124,13 +198,10 @@ flat_raster_backward_kernel(
     const int lo = max(top - kBatch, 0);
     const int batch = top - lo;
     __syncthreads();  // the previous batch's records and partials are consumed
-    if (t < batch) {
-      const int g = point_list[start + lo + t];
-      s_xy[t] = xy[g];
-      s_co[t] = conic_op[g];
-      s_rgb[t][0] = rgb[3 * g + 0];
-      s_rgb[t][1] = rgb[3 * g + 1];
-      s_rgb[t][2] = rgb[3 * g + 2];
+    if (t < batch * kRecVecs) {
+      const int j = t / kRecVecs;
+      const int g = point_list[start + lo + j];
+      s_rec[j][t % kRecVecs] = records[(int64_t)g * kRecVecs + t % kRecVecs];
     }
     __syncthreads();
     for (int j = batch - 1; j >= 0; --j) {
@@ -138,18 +209,20 @@ flat_raster_backward_kernel(
       float v[kTerms];
 #pragma unroll
       for (int k = 0; k < kTerms; ++k) v[k] = 0.0f;
+      bool included = false;
       if (pos < last) {
-        const float2 m = s_xy[j];
-        const float4 co = s_co[j];
-        const float dx = m.x - fx;
-        const float dy = m.y - fy;
+        const float4 co = s_rec[j][0];
+        const float4 mc = s_rec[j][1];
+        const float dx = mc.x - fx;
+        const float dy = mc.y - fy;
         const float power = (-0.5f * co.x * dx - co.y * dy) * dx + (-0.5f * co.z) * dy * dy;
         const float q = co.w * expf(power);
         const float alpha = fminf(kAlphaMax, q);
         if (power <= 0.0f && alpha >= kAlphaMin) {
+          included = true;
           const float u = 1.0f - alpha;
           const float t_i = T / u;
-          const float dcc = d0 * s_rgb[j][0] + d1 * s_rgb[j][1] + d2 * s_rgb[j][2];
+          const float dcc = d0 * mc.z + d1 * mc.w + d2 * s_rec[j][2].x;
           const float w = t_i * alpha;
           const float g_alpha = t_i * dcc - S / u;
           S = S + w * dcc;
@@ -168,39 +241,33 @@ flat_raster_backward_kernel(
           v[8] = w * d2;
         }
       }
-#pragma unroll
-      for (int k = 0; k < kTerms; ++k) {
-        float s = v[k];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-        v[k] = s;
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < kTerms; ++k) s_part[j][warp][k] = v[k];
-      }
+      float sum = 0.0f;
+      if (__any_sync(kFull, included)) sum = reduce_scatter9(v, lane);
+      if (writes) s_part[j][warp][owner] = sum;
     }
     __syncthreads();
-    if (t < batch) {
-      float s[kTerms];
+    // combine: thread per (instance, gradient component)
+    for (int task = t; task < batch * kTerms; task += kBlock) {
+      const int j = task / kTerms;
+      const int k = task % kTerms;
+      auto total = [&](int q) {
+        float a = s_part[j][0][q];
 #pragma unroll
-      for (int k = 0; k < kTerms; ++k) {
-        float a = s_part[t][0][k];
-#pragma unroll
-        for (int w8 = 1; w8 < kWarps; ++w8) a = a + s_part[t][w8][k];
-        s[k] = a;
+        for (int w8 = 1; w8 < kWarps; ++w8) a = a + s_part[j][w8][q];
+        return a;
+      };
+      const float4 co = s_rec[j][0];
+      float r;
+      switch (k) {
+        case 0: r = -(co.x * total(1) + co.y * total(2)); break;
+        case 1: r = -(co.z * total(2) + co.y * total(1)); break;
+        case 2: r = -0.5f * total(3); break;
+        case 3: r = -total(4); break;
+        case 4: r = -0.5f * total(5); break;
+        case 5: r = total(0) / co.w; break;
+        default: r = total(k); break;
       }
-      const float4 co = s_co[t];
-      float* out = inst_grads + perm[start + lo + t] * kTerms;
-      out[0] = -(co.x * s[1] + co.y * s[2]);
-      out[1] = -(co.z * s[2] + co.y * s[1]);
-      out[2] = -0.5f * s[3];
-      out[3] = -s[4];
-      out[4] = -0.5f * s[5];
-      out[5] = s[0] / co.w;
-      out[6] = s[6];
-      out[7] = s[7];
-      out[8] = s[8];
+      inst_grads[perm[start + lo + j] * kTerms + k] = r;
     }
   }
 }
@@ -212,35 +279,41 @@ __global__ void flat_raster_reduce_kernel(
     int n,
     float* __restrict__ grads)                // (N, 9)
 {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
+  const int j = (int)(((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32);
+  const int lane = threadIdx.x % 32;
+  if (j >= n) return;  // the whole warp
+  const int64_t b = rank_start[j];
+  const int64_t e = rank_start[j + 1];
+  float* out = grads + order[j] * kTerms;
+  if (e - b <= 1) {
+    // the butterfly adds only +0 to lane 0's 0 + x
+    if (lane < kTerms) out[lane] = e > b ? __fadd_rn(0.0f, inst_grads[b * kTerms + lane]) : 0.0f;
+    return;
+  }
   float acc[kTerms];
 #pragma unroll
   for (int k = 0; k < kTerms; ++k) acc[k] = 0.0f;
-  const int64_t e = rank_start[j + 1];
-  for (int64_t i = rank_start[j]; i < e; ++i) {
+  for (int64_t i = b + lane; i < e; i += 32) {
 #pragma unroll
     for (int k = 0; k < kTerms; ++k) acc[k] = acc[k] + inst_grads[i * kTerms + k];
   }
-  float* out = grads + order[j] * kTerms;
-#pragma unroll
-  for (int k = 0; k < kTerms; ++k) out[k] = acc[k];
+  const float sum = reduce_scatter9(acc, lane);
+  const int owner = kOwner[lane >> 1];
+  if (owner >= 0 && (lane & 1) == 0) out[owner] = sum;
 }
 
 }  // namespace
 
 extern "C" int flat_raster_backward(
-    void* tile_start, void* tile_end, void* point_list, void* perm,
-    void* xy, void* conic_op, void* rgb,
+    void* tile_start, void* tile_end, void* point_list, void* schedule, void* perm, void* records,
     void* t_final, void* n_contrib, void* dc, void* bg,
     int width, int height, int tiles_x, int tiles_y,
     void* inst_grads, void* stream)
 {
   if (tiles_x > 0 && tiles_y > 0) {
-    dim3 grid(tiles_x, tiles_y);
-    flat_raster_backward_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+    flat_raster_backward_kernel<<<tiles_x * tiles_y, kBlock, 0, (cudaStream_t)stream>>>(
         (const int32_t*)tile_start, (const int32_t*)tile_end, (const int32_t*)point_list,
-        (const int64_t*)perm, (const float2*)xy, (const float4*)conic_op, (const float*)rgb,
+        (const int32_t*)schedule, (const int64_t*)perm, (const float4*)records,
         (const float*)t_final, (const int32_t*)n_contrib, (const float*)dc, (const float*)bg,
         width, height, tiles_x, (float*)inst_grads);
   }
@@ -252,7 +325,8 @@ extern "C" int flat_raster_reduce(void* inst_grads, void* rank_start, void* orde
 {
   if (n > 0) {
     const int threads = 256;
-    flat_raster_reduce_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+    const int64_t blocks = ((int64_t)n * 32 + threads - 1) / threads;
+    flat_raster_reduce_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
         (const float*)inst_grads, (const int64_t*)rank_start, (const int64_t*)order, n,
         (float*)grads);
   }

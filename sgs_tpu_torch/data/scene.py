@@ -2,12 +2,16 @@
 Blender (NeRF-synthetic) dataset. Port of the Blender branch of
 `sgs_tpu/data/scene.py` and its reader (`read_nerf_synthetic_scene`).
 
-In the JAX package's order: cameras read, input.ply and cameras.json
-written into the model directory, train and test lists shuffled with the
-global `random` (the training CLI seeds it), the extent from the NeRF++
-normalisation radius, and the pool built from points3d.ply (a random
-100k-point cloud is written first when the scene has none). COLMAP and
-mesh scenes are not ported yet and raise.
+In the JAX package's order: cameras read (the test views merged into
+train when `eval` is False), input.ply and cameras.json written into the
+model directory unless a trained iteration is loaded, train and test
+lists shuffled with the global `random` (the training CLI seeds it)
+unless `shuffle` is False, the extent from the NeRF++ normalisation
+radius, and the pool either loaded from
+point_cloud/iteration_<load_iteration>/point_cloud.ply (-1: the latest)
+or built from points3d.ply (a random 100k-point cloud is written first
+when the scene has none). COLMAP and mesh scenes are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import json
 import os
 import random
 import shutil
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -64,11 +68,29 @@ def _point_cloud(path: str):
     return ply_path, ply_io.load_point_cloud_ply(ply_path)
 
 
+def search_for_max_iteration(folder: str) -> Optional[int]:
+    if not os.path.isdir(folder):
+        return None
+    iters = [int(name.split("_")[-1]) for name in os.listdir(folder) if name.startswith("iteration_")]
+    return max(iters) if iters else None
+
+
 class Scene:
-    def __init__(self, model_params, device: "str | torch.device" = "cuda"):
+    """`ply_path`, which the JAX Scene lacks, loads that PLY as the trained
+    model in place of the model directory's (the render CLI's --ply)."""
+
+    def __init__(self, model_params, load_iteration: Optional[int] = None, shuffle: bool = True,
+                 device: "str | torch.device" = "cuda", ply_path: Optional[str] = None):
         args = model_params
         src = args.source_path
         self.model_path = args.model_path
+        self.loaded_iter = None
+        if load_iteration:
+            if load_iteration == -1:
+                self.loaded_iter = search_for_max_iteration(os.path.join(self.model_path, "point_cloud"))
+            else:
+                self.loaded_iter = load_iteration
+            print(f"Loading trained model at iteration {self.loaded_iter}")
         if not os.path.exists(os.path.join(src, "transforms_train.json")):
             raise NotImplementedError(
                 f"{src}: only Blender (transforms_train.json) scenes are ported"
@@ -81,23 +103,29 @@ class Scene:
         if not args.eval:
             train, test = train + test, []
         norm = get_nerfpp_norm(train)
-        ply_path, (points, colors, _) = _point_cloud(src)
+        input_ply, (points, colors, _) = _point_cloud(src)
 
-        if self.model_path:
+        if not self.loaded_iter and self.model_path:
             os.makedirs(self.model_path, exist_ok=True)
-            shutil.copyfile(ply_path, os.path.join(self.model_path, "input.ply"))
+            shutil.copyfile(input_ply, os.path.join(self.model_path, "input.ply"))
             cams = list(test) + list(train)
             with open(os.path.join(self.model_path, "cameras.json"), "w") as f:
                 json.dump([camera_to_json(i, c) for i, c in enumerate(cams)], f)
-        random.shuffle(train)
-        random.shuffle(test)
+        if shuffle:
+            random.shuffle(train)
+            random.shuffle(test)
 
         self.cameras_extent: float = norm["radius"]
         self.train_cameras: List[LoadedCamera] = [load_camera(c, args.resolution, device) for c in train]
         self.test_cameras: List[LoadedCamera] = [load_camera(c, args.resolution, device) for c in test]
 
-        print(f"Number of points at initialisation : {len(points)}")
-        self.pool = GaussianModel.from_pcd(points, colors, args.sh_degree, device=device)
+        if self.loaded_iter or ply_path:
+            ply_path = ply_path or os.path.join(
+                self.model_path, "point_cloud", f"iteration_{self.loaded_iter}", "point_cloud.ply")
+            self.pool = GaussianModel.from_ply(ply_path, args.sh_degree, device)
+        else:
+            print(f"Number of points at initialisation : {len(points)}")
+            self.pool = GaussianModel.from_pcd(points, colors, args.sh_degree, device=device)
 
     def save(self, model: GaussianModel, iteration: int) -> str:
         path = os.path.join(self.model_path, f"point_cloud/iteration_{iteration}", "point_cloud.ply")

@@ -222,8 +222,12 @@ def l2_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
-    """20*log10(1/sqrt(mse)) of a (C, H, W) pair."""
-    mse = torch.mean((img1 - img2) ** 2)
+    """20*log10(1/sqrt(mse)) per image: a scalar for a (C, H, W) pair,
+    (B, 1) for a (B, C, H, W) batch, as the JAX package's `psnr`."""
+    if img1.ndim == 3:
+        mse = torch.mean((img1 - img2) ** 2)
+    else:
+        mse = torch.mean(((img1 - img2) ** 2).reshape(img1.shape[0], -1), dim=1, keepdim=True)
     return 20.0 * torch.log10(1.0 / torch.sqrt(mse))
 
 

@@ -1,19 +1,26 @@
 """Render the train/test views of a trained model to PNGs on the card.
 Port of the repository's `render.py` for NeRF-synthetic scenes.
 
-    python -m sgs_tpu_torch.render -m <model_dir> [-s <scene>] [--ply <file>]
+    python -m sgs_tpu_torch.render -m <model_dir> [-s <scene>] [--iteration N]
+        [--skip_train] [--skip_test] [--quiet] [--eval | --no-eval] [--ply <file>]
 
-Writes <model>/{train,test}/ours_<iteration>/{renders,gt}/%05d.png. The
-scene, background and SH degree come from <model>/cfg_args unless given.
-With --ply the model is that file and --iteration only names the output.
+The flags are `render.py`'s: the model flags (registered with sentinel
+defaults and merged over <model>/cfg_args, so `-m` alone recovers the
+scene, `eval` and the background), the pipeline flags, --iteration,
+--skip_train, --skip_test and --quiet. The views come from the port's
+`Scene` with `shuffle=False`, so with `eval` False the test views are
+rendered as part of train and no test set is written. Writes
+<model>/{train,test}/ours_<iteration>/{renders,gt}/%05d.png. Two flags are
+the port's own: --ply renders that file in place of the model
+directory's snapshot (--iteration then only names the output), and
+--device cpu runs the plain PyTorch versions of the kernels.
 """
 
 from __future__ import annotations
 
-import argparse
-import ast
+import contextlib
 import os
-import re
+from argparse import ArgumentParser
 from pathlib import Path
 from typing import List, Optional
 
@@ -22,32 +29,18 @@ import torch
 
 from sgs_tpu_torch.core.device import resolve_device
 from sgs_tpu_torch.data.png import write_png
-from sgs_tpu_torch.data.readers import LoadedCamera, read_nerf_synthetic_split
+from sgs_tpu_torch.data.readers import LoadedCamera
+from sgs_tpu_torch.data.scene import Scene
 from sgs_tpu_torch.models.gaussians import GaussianModel
 from sgs_tpu_torch.train.loop import eval_render
-
-
-def read_cfg_args(model_path: str) -> dict:
-    """The `Namespace(...)` that training wrote to <model>/cfg_args, as a dict."""
-    path = os.path.join(model_path, "cfg_args")
-    if not os.path.exists(path):
-        return {}
-    with open(path) as f:
-        node = ast.parse(f.read().strip(), mode="eval").body
-    if not isinstance(node, ast.Call):
-        raise ValueError(f"{path}: expected Namespace(...)")
-    return {kw.arg: ast.literal_eval(kw.value) for kw in node.keywords}
-
-
-def latest_iteration(model_path: str) -> int:
-    its = [
-        int(m.group(1))
-        for d in os.listdir(os.path.join(model_path, "point_cloud"))
-        if (m := re.fullmatch(r"iteration_(\d+)", d))
-    ]
-    if not its:
-        raise FileNotFoundError(f"no point_cloud/iteration_* in {model_path}")
-    return max(its)
+from sgs_tpu_torch.utils.config import (
+    ModelParams,
+    PipelineParams,
+    add_dataclass_args,
+    check_rasterizer,
+    extract_dataclass,
+    get_combined_args,
+)
 
 
 def save_png(path: str, image_chw: torch.Tensor) -> None:
@@ -67,47 +60,47 @@ def render_set(out_dir: Path, views: List[LoadedCamera], model: GaussianModel,
         save_png(str(gts / f"{idx:05d}.png"), view.gt_image)
 
 
-def render_sets(model_path: str, source_path: Optional[str] = None, ply: Optional[str] = None,
-                iteration: int = -1, white_background: Optional[bool] = None,
-                sh_degree: Optional[int] = None, skip_train: bool = False, skip_test: bool = False,
+def render_sets(dataset: ModelParams, iteration: int, pipe: PipelineParams, skip_train: bool,
+                skip_test: bool, ply: Optional[str] = None,
                 device: "str | torch.device" = "cuda") -> int:
-    """Render a model's splits; returns the iteration it labelled them with."""
-    dev = resolve_device(device)
-    cfg = read_cfg_args(model_path)
-    source_path = source_path or cfg.get("source_path")
-    if not source_path:
+    """Render a model's splits, as `render.py::render_sets`; returns the
+    iteration it labelled them with."""
+    check_rasterizer(pipe)
+    if not dataset.source_path:
         raise ValueError("no scene: pass -s or keep cfg_args in the model dir")
-    white = cfg.get("white_background", False) if white_background is None else white_background
-    sh_degree = cfg.get("sh_degree", 3) if sh_degree is None else sh_degree
-    resolution = cfg.get("resolution", -1)
-    if ply is None:
-        iteration = latest_iteration(model_path) if iteration == -1 else iteration
-        ply = os.path.join(model_path, "point_cloud", f"iteration_{iteration}", "point_cloud.ply")
-    model = GaussianModel.from_ply(ply, sh_degree, dev)
-    background = torch.tensor([1.0, 1.0, 1.0] if white else [0.0, 0.0, 0.0], device=dev)
-    splits = [s for s, skip in (("train", skip_train), ("test", skip_test)) if not skip]
-    for split in splits:
-        if not os.path.exists(os.path.join(source_path, f"transforms_{split}.json")):
-            continue
-        views = read_nerf_synthetic_split(source_path, split, white, resolution, dev)
-        render_set(Path(model_path) / split / f"ours_{iteration}", views, model, sh_degree, background)
-    return iteration
+    dev = resolve_device(device)
+    scene = Scene(dataset, load_iteration=iteration, shuffle=False, device=dev, ply_path=ply)
+    background = torch.tensor([1.0, 1.0, 1.0] if dataset.white_background else [0.0, 0.0, 0.0],
+                              device=dev)
+    for split, views, skip in (("train", scene.train_cameras, skip_train),
+                               ("test", scene.test_cameras, skip_test)):
+        if not skip:
+            render_set(Path(dataset.model_path) / split / f"ours_{scene.loaded_iter}", views,
+                       scene.pool, dataset.sh_degree, background)
+    return scene.loaded_iter
+
+
+def build_parser() -> ArgumentParser:
+    parser = ArgumentParser(description="Testing script parameters (PyTorch/CUDA port)")
+    add_dataclass_args(parser, ModelParams, "Loading Parameters", sentinel=True)
+    add_dataclass_args(parser, PipelineParams, "Pipeline Parameters")
+    parser.add_argument("--iteration", default=-1, type=int)
+    parser.add_argument("--skip_train", action="store_true")
+    parser.add_argument("--skip_test", action="store_true")
+    parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--ply", default=None, help="render this PLY instead of the model dir's")
+    parser.add_argument("--device", default="cuda")
+    return parser
 
 
 def main(argv=None) -> None:
-    parser = argparse.ArgumentParser(description="Render a trained model's views (PyTorch/CUDA port)")
-    parser.add_argument("--model_path", "-m", required=True)
-    parser.add_argument("--source_path", "-s", default=None)
-    parser.add_argument("--ply", default=None, help="render this PLY instead of the model dir's")
-    parser.add_argument("--iteration", type=int, default=-1)
-    parser.add_argument("--white_background", "-w", action="store_true", default=None)
-    parser.add_argument("--sh_degree", type=int, default=None)
-    parser.add_argument("--skip_train", action="store_true")
-    parser.add_argument("--skip_test", action="store_true")
-    parser.add_argument("--device", default="cuda")
-    args = parser.parse_args(argv)
+    args = get_combined_args(build_parser(), argv)
+    if not args.model_path:
+        raise SystemExit("render: -m/--model_path is required")
     print("Rendering " + args.model_path)
-    render_sets(
-        args.model_path, args.source_path, args.ply, args.iteration, args.white_background,
-        args.sh_degree, args.skip_train, args.skip_test, args.device,
-    )
+    with open(os.devnull, "w") as null, contextlib.ExitStack() as stack:
+        if args.quiet:
+            stack.enter_context(contextlib.redirect_stdout(null))
+        render_sets(extract_dataclass(ModelParams, args), args.iteration,
+                    extract_dataclass(PipelineParams, args), args.skip_train, args.skip_test,
+                    getattr(args, "ply", None), args.device)

@@ -86,7 +86,10 @@ def _expand(counts: torch.Tensor):
 def bin_gaussians(mean2d, conic, opacity, depth, radius, valid,
                   width: int, height: int, tight: bool = True) -> dict:
     """Tile-sorted instance lists. Returns point_list (M,) int32 Gaussian
-    ids, tile_start/tile_end (T,) int32, tiles_x, tiles_y, n_rows (the
+    ids, tile_start/tile_end (T,) int32, schedule (T,) int32 (the tiles
+    by list length, longest first, stably: the order in which Kernels A
+    and C hand tiles to blocks, so the longest lists start first and do
+    not trail the grid), tiles_x, tiles_y, n_rows (the
     (Gaussian, tile-row) count) and, for the backward, perm (M,) int64
     (presort position of each tile-sorted instance), rank_start (N+1,)
     int64 (presort run of each depth rank) and order (N,) int64 (depth
@@ -129,12 +132,14 @@ def bin_gaussians(mean2d, conic, opacity, depth, radius, valid,
     per_tile = torch.bincount(tile_sorted, minlength=num_tiles)
     tile_end = torch.cumsum(per_tile, 0)
     tile_start = tile_end - per_tile
+    schedule = torch.argsort(per_tile, descending=True, stable=True)
     per_rank = torch.bincount(run[inst_row], minlength=order.shape[0])
     rank_start = torch.cat([per_rank.new_zeros(1), torch.cumsum(per_rank, 0)])
     return {
         "point_list": point_list,
         "tile_start": tile_start.to(torch.int32).contiguous(),
         "tile_end": tile_end.to(torch.int32).contiguous(),
+        "schedule": schedule.to(torch.int32).contiguous(),
         "tiles_x": tiles_x,
         "tiles_y": tiles_y,
         "n_rows": int(row_g.shape[0]),
@@ -145,12 +150,14 @@ def bin_gaussians(mean2d, conic, opacity, depth, radius, valid,
 
 
 def kernel_args(bins: dict, mean2d, conic, opacity, rgb, width: int, height: int) -> tuple:
-    """Kernel A's arguments, in the order `flat_raster.rasterize_tiles` takes them."""
-    conic_op = torch.cat([conic, opacity[:, None]], dim=1).to(torch.float32).contiguous()
+    """Kernel A's arguments, in the order `flat_raster.rasterize_tiles`
+    takes them: the bins and one (N, 12) record per Gaussian, conic a, b,
+    c, opacity, mean x, y, r, g, b and three zeros."""
+    pad = torch.zeros((mean2d.shape[0], 3), dtype=torch.float32, device=mean2d.device)
+    records = torch.cat([conic, opacity[:, None], mean2d, rgb, pad], dim=1).to(torch.float32)
     return (
-        bins["tile_start"], bins["tile_end"], bins["point_list"],
-        mean2d.to(torch.float32).contiguous(), conic_op, rgb.to(torch.float32).contiguous(),
-        width, height,
+        bins["tile_start"], bins["tile_end"], bins["point_list"], bins["schedule"],
+        records.contiguous(), width, height,
     )
 
 
@@ -172,7 +179,7 @@ class RasterizeFunction(torch.autograd.Function):
         color, t_final, n_contrib = flat_raster.rasterize_tiles(*args)
         bg32 = bg.to(torch.float32)
         image = color + t_final[None] * bg32[:, None, None]
-        ctx.save_for_backward(*args[:6], t_final, n_contrib, bg32, bins["perm"],
+        ctx.save_for_backward(*args[:5], t_final, n_contrib, bg32, bins["perm"],
                               bins["rank_start"], bins["order"])
         ctx.size = (width, height)
         ctx.bg_dtype = bg.dtype
@@ -182,12 +189,12 @@ class RasterizeFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_image):
-        (tile_start, tile_end, point_list, xy, conic_op, rgb, t_final, n_contrib, bg,
+        (tile_start, tile_end, point_list, schedule, records, t_final, n_contrib, bg,
          perm, rank_start, order) = ctx.saved_tensors
         width, height = ctx.size
         dc = d_image.to(torch.float32).contiguous()
         grads = flat_raster.rasterize_tiles_backward(
-            tile_start, tile_end, point_list, xy, conic_op, rgb, width, height,
+            tile_start, tile_end, point_list, schedule, records, width, height,
             t_final, n_contrib, dc, bg, perm, rank_start, order,
         )
         d_bg = torch.sum(t_final[None] * dc, dim=(1, 2)).to(ctx.bg_dtype)

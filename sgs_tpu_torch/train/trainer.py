@@ -37,7 +37,13 @@ from sgs_tpu_torch.ops.ssim import l1_loss, psnr
 from sgs_tpu_torch.train import checkpoint as ckpt
 from sgs_tpu_torch.train.loop import TrainState, eval_render, train_step
 from sgs_tpu_torch.train.optim import AdamState, make_lr_dict
-from sgs_tpu_torch.utils.config import ModelParams, OptimizationParams, PipelineParams, save_cfg_args
+from sgs_tpu_torch.utils.config import (
+    ModelParams,
+    OptimizationParams,
+    PipelineParams,
+    check_rasterizer,
+    save_cfg_args,
+)
 
 GROW_FREE_FRACTION = 0.2
 GROW_FACTOR = 2.0
@@ -69,8 +75,7 @@ def _check_pipeline(pipe: PipelineParams) -> None:
         raise NotImplementedError(
             f"--parallel {pipe.parallel}: multi-device training is not ported yet"
         )
-    if pipe.rasterizer != "tiled" or not pipe.tight_culling:
-        raise NotImplementedError("the port renders with the tiled rasterizer and tight culling only")
+    check_rasterizer(pipe)
 
 
 def _sample_like_bucket_sizing(py_rng: random.Random, cams: list) -> None:

@@ -3,11 +3,14 @@
 Field names, defaults and one-letter shorthands match the JAX package's
 flag for flag, so a JAX command line and its cfg_args carry across. The
 pipeline flags that select JAX rasterizers or multi-chip modes are kept
-by name; the port's trainer raises on the values it does not run.
+by name; the port's trainer and render CLI raise on the values they do
+not run. Render-time tools register the model flags with sentinel None
+defaults and merge them over the persisted cfg_args (`get_combined_args`).
 """
 
 from __future__ import annotations
 
+import ast
 import os
 from argparse import ArgumentParser, BooleanOptionalAction, Namespace
 from dataclasses import dataclass, field, fields
@@ -80,8 +83,12 @@ class OptimizationParams:
     _shorthands: dict = field(default_factory=dict)
 
 
-def add_dataclass_args(parser: ArgumentParser, cls, group_name: str) -> None:
-    """One flag per field (with its shorthand); bools as --flag/--no-flag."""
+def add_dataclass_args(parser: ArgumentParser, cls, group_name: str, sentinel: bool = False) -> None:
+    """One flag per field (with its shorthand); bools as --flag/--no-flag.
+
+    sentinel=True makes every default None, so a value persisted in
+    cfg_args survives `get_combined_args` unless the flag is given; with
+    --flag/--no-flag a True persisted there can still be turned off."""
     group = parser.add_argument_group(group_name)
     shorthands = getattr(cls, "_shorthands", {}) or {}
     if not isinstance(shorthands, dict):
@@ -90,11 +97,12 @@ def add_dataclass_args(parser: ArgumentParser, cls, group_name: str) -> None:
         if f.name.startswith("_"):
             continue
         names = ["--" + f.name] + ([shorthands[f.name]] if f.name in shorthands else [])
+        default = None if sentinel else f.default
         if f.type in (bool, "bool"):
-            group.add_argument(*names, default=f.default, action=BooleanOptionalAction)
+            group.add_argument(*names, default=default, action=BooleanOptionalAction)
         else:
             t = {"int": int, "float": float, "str": str}.get(f.type, str)
-            group.add_argument(*names, default=f.default, type=t)
+            group.add_argument(*names, default=default, type=t)
 
 
 def extract_dataclass(cls, args: Namespace):
@@ -120,3 +128,31 @@ def save_cfg_args(model_path: str, model_params: ModelParams) -> None:
     })
     with open(os.path.join(model_path, "cfg_args"), "w") as f:
         f.write(str(ns))
+
+
+def read_cfg_args(model_path: str) -> dict:
+    """The `Namespace(...)` literal in <model>/cfg_args as a dict, read
+    without eval; {} if the file is missing."""
+    path = os.path.join(model_path, "cfg_args")
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        node = ast.parse(f.read().strip(), mode="eval").body
+    if not isinstance(node, ast.Call):
+        raise ValueError(f"{path}: expected Namespace(...)")
+    return {kw.arg: ast.literal_eval(kw.value) for kw in node.keywords}
+
+
+def get_combined_args(parser: ArgumentParser, argv=None) -> Namespace:
+    """The command line over the model directory's persisted cfg_args:
+    every flag given (not None) wins, the rest come from cfg_args."""
+    args_cmdline = parser.parse_args(argv)
+    merged = read_cfg_args(args_cmdline.model_path) if args_cmdline.model_path else {}
+    merged.update({k: v for k, v in vars(args_cmdline).items() if v is not None})
+    return Namespace(**merged)
+
+
+def check_rasterizer(pipe: PipelineParams) -> None:
+    """The port renders with the tiled rasterizer and tight culling only."""
+    if pipe.rasterizer != "tiled" or not pipe.tight_culling:
+        raise NotImplementedError("the port renders with the tiled rasterizer and tight culling only")

@@ -22,20 +22,27 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 100
 
 
+def make_small_scene(scene_dir):
+    """Two flagship train and two test views at 100x100, no points3d.ply."""
+    src = os.path.join(ROOT, "data", "flagship800")
+    for split in ("train", "test"):
+        with open(os.path.join(src, f"transforms_{split}.json")) as f:
+            meta = json.load(f)
+        meta["frames"] = meta["frames"][:2]
+        (scene_dir / split).mkdir(parents=True)
+        for frame in meta["frames"]:
+            img = np.asarray(Image.open(os.path.join(src, frame["file_path"] + ".png")))
+            small = img.reshape(SIZE, 8, SIZE, 8, 3).mean(axis=(1, 3)).astype(np.uint8)
+            Image.fromarray(small).save(scene_dir / (frame["file_path"] + ".png"))
+        (scene_dir / f"transforms_{split}.json").write_text(json.dumps(meta))
+
+
 @pytest.fixture
 def scene(tmp_path):
-    """Two flagship test views at 100x100 and a 3,000-Gaussian subset PLY."""
-    src = os.path.join(ROOT, "data", "flagship800")
-    with open(os.path.join(src, "transforms_test.json")) as f:
-        meta = json.load(f)
-    meta["frames"] = meta["frames"][:2]
+    """Two flagship train and test views at 100x100 and a 3,000-Gaussian
+    subset PLY."""
     scene_dir = tmp_path / "scene"
-    (scene_dir / "test").mkdir(parents=True)
-    for frame in meta["frames"]:
-        img = np.asarray(Image.open(os.path.join(src, frame["file_path"] + ".png")))
-        small = img.reshape(SIZE, 8, SIZE, 8, 3).mean(axis=(1, 3)).astype(np.uint8)
-        Image.fromarray(small).save(scene_dir / (frame["file_path"] + ".png"))
-    (scene_dir / "transforms_test.json").write_text(json.dumps(meta))
+    make_small_scene(scene_dir)
     arrays = load_gaussian_ply(os.path.join(ROOT, "assets", "flagship", "point_cloud.ply"), 3)
     keep = np.sort(np.random.default_rng(1).choice(arrays["xyz"].shape[0], 3000, replace=False))
     sub = {k: v[keep] for k, v in arrays.items()}

@@ -144,6 +144,7 @@ def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path):
     from sgs_tpu_torch.metrics import evaluate
     from sgs_tpu_torch.models.gaussians import GaussianModel
     from sgs_tpu_torch.render.cli import render_sets
+    from sgs_tpu_torch.utils.config import ModelParams, PipelineParams
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -154,7 +155,8 @@ def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError):
         GaussianModel.from_ply(os.path.join(root, "assets", "lgm", "point_cloud.ply"), 0)
     with pytest.raises(RuntimeError):
-        render_sets(str(tmp_path), os.path.join(root, "data", "flagship800"))
+        render_sets(ModelParams(source_path=os.path.join(root, "data", "flagship800"),
+                                model_path=str(tmp_path)), -1, PipelineParams(), False, False)
     with pytest.raises(RuntimeError):
         evaluate([str(tmp_path)])
     assert resolve_device("cpu") == torch.device("cpu")

@@ -157,7 +157,9 @@ def test_wrapper_checks_inputs():
     sc = _torch(_scene(8, 50, w, h))
     bins = tiled.bin_gaussians(sc["mean2d"], sc["conic"], sc["opacity"], sc["depth"],
                                sc["radius"], sc["valid"], w, h)
-    args = list(tiled.kernel_args(bins, sc["mean2d"], sc["conic"], sc["opacity"], sc["rgb"], w, h))
-    args[3] = args[3].double()
-    with pytest.raises(ValueError):
-        flat_raster.rasterize_tiles(*args)
+    good = tiled.kernel_args(bins, sc["mean2d"], sc["conic"], sc["opacity"], sc["rgb"], w, h)
+    for i, bad in ((4, good[4].double()), (4, good[4][:, :9].contiguous()), (3, good[3].long())):
+        args = list(good)
+        args[i] = bad
+        with pytest.raises(ValueError):
+            flat_raster.rasterize_tiles(*args)

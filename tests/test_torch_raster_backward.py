@@ -113,6 +113,86 @@ def test_backward_wrapper_checks_inputs():
             bins["order"])
     assert flat_raster.rasterize_tiles_backward(*good).shape == (50, 9)
     with pytest.raises(ValueError):
-        flat_raster.rasterize_tiles_backward(*good[:10], dc.double(), *good[11:])
+        flat_raster.rasterize_tiles_backward(*good[:9], dc.double(), *good[10:])
     with pytest.raises(ValueError):
-        flat_raster.rasterize_tiles_backward(*good[:12], bins["perm"].int(), *good[13:])
+        flat_raster.rasterize_tiles_backward(*good[:11], bins["perm"].int(), *good[12:])
+
+
+def test_reduce_runs_plain_long_and_short_runs():
+    """Runs of length 0, 1, 31, 32, 33 and 1000 and more, scattered through
+    `order`: each Gaussian's sum against a float64 sum to 1e-6 relative
+    (positive terms, so the relative bar is the f32 summation error of
+    32 lane sums of at most 40 terms), empty runs exactly +0, and the
+    result the same bits on a second call."""
+    lengths = np.array([0, 1, 31, 32, 33, 1000, 1283, 0, 2, 64, 65, 1])
+    rng = np.random.default_rng(11)
+    inst = rng.uniform(0.0, 1.0, (int(lengths.sum()), 9)).astype(np.float32)
+    rank_start = np.concatenate([[0], np.cumsum(lengths)])
+    order = rng.permutation(lengths.shape[0])
+    args = (torch.from_numpy(inst), torch.from_numpy(rank_start), torch.from_numpy(order))
+    got = flat_raster.reduce_runs_plain(*args).numpy()
+    again = flat_raster.reduce_runs_plain(*args).numpy()
+    np.testing.assert_array_equal(got, again)
+    for j, (b, e) in enumerate(zip(rank_start[:-1], rank_start[1:])):
+        want = inst[b:e].astype(np.float64).sum(axis=0)
+        row = got[order[j]]
+        if e == b:
+            assert (row == 0).all() and not np.signbit(row).any()
+        else:
+            np.testing.assert_allclose(row, want, rtol=1e-6, err_msg=f"run of {e - b}")
+
+
+def test_reduce_runs_plain_order_is_lanes_then_butterfly():
+    """A run of 70: lane l sums elements l, l + 32, l + 64 in turn, then
+    the 32 lane sums meet in the xor-butterfly order (the kernel's warp
+    per run); written out with numpy float32, the same bits."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((70, 9)).astype(np.float32)
+    lanes = np.zeros((32, 9), np.float32)
+    for i in range(70):
+        lanes[i % 32] = lanes[i % 32] + x[i]
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes[:off] + lanes[off:2 * off]
+    got = flat_raster.reduce_runs_plain(torch.from_numpy(x), torch.tensor([0, 70]),
+                                        torch.tensor([0]))
+    np.testing.assert_array_equal(got.numpy()[0], lanes[0])
+
+
+def test_tile_schedule_is_longest_first_and_does_not_change_outputs():
+    """Binning's schedule is the tiles by list length, longest first
+    (stable), a permutation; Kernel A's and C's plain versions give the
+    same bits under it, raster order, the reverse and a random order."""
+    w, h = 70, 33
+    sc = _torch(_scene(9, 300, w, h))
+    bins = tiled.bin_gaussians(sc["mean2d"], sc["conic"], sc["opacity"], sc["depth"],
+                               sc["radius"], sc["valid"], w, h)
+    schedule = bins["schedule"]
+    counts = (bins["tile_end"] - bins["tile_start"]).numpy()
+    n_tiles = counts.shape[0]
+    assert schedule.dtype == torch.int32
+    assert sorted(schedule.tolist()) == list(range(n_tiles))
+    np.testing.assert_array_equal(schedule.numpy(), np.argsort(-counts, kind="stable"))
+    args = tiled.kernel_args(bins, sc["mean2d"], sc["conic"], sc["opacity"], sc["rgb"], w, h)
+    fwd = flat_raster.rasterize_tiles_plain(*args)
+    dc = torch.from_numpy(_cotangent(10, w, h))
+    extra = (fwd[1], fwd[2], dc, torch.tensor([0.2, 0.5, 0.9]), bins["perm"], bins["rank_start"],
+             bins["order"])
+    bwd = flat_raster.rasterize_tiles_backward_plain(*args, *extra)
+    rng = np.random.default_rng(3)
+    for other in (np.arange(n_tiles), np.arange(n_tiles)[::-1].copy(), rng.permutation(n_tiles)):
+        alt = list(args)
+        alt[3] = torch.from_numpy(other.astype(np.int32))
+        for a, b in zip(fwd, flat_raster.rasterize_tiles_plain(*alt)):
+            assert torch.equal(a, b)
+        assert torch.equal(bwd, flat_raster.rasterize_tiles_backward_plain(*alt, *extra))
+
+
+def test_walk_ablation_variants_apply():
+    """Each variant of `sgs_tpu_torch.tools.walk_ablation` finds the text it
+    undoes in the committed Kernel C source and changes it."""
+    from sgs_tpu_torch.tools import walk_ablation
+
+    committed = walk_ablation.SOURCE.read_text()
+    for name in walk_ablation.VARIANTS:
+        text = walk_ablation.variant_source(name).read_text()
+        assert text != committed and "flat_raster_backward_kernel" in text, name

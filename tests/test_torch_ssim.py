@@ -65,6 +65,23 @@ def test_psnr_and_l1_match_jax(h, w):
     )
 
 
+def test_psnr_batched_matches_jax():
+    """(B, C, H, W) gives one PSNR per image, (B, 1), as JAX's `psnr`;
+    rtol 1e-5 as above. The (C, H, W) case stays a scalar."""
+    pairs = [_pair(5 + b, 24, 40) for b in range(3)]
+    x = np.stack([p[0] for p in pairs])
+    y = np.stack([p[1] for p in pairs])
+    want = np.asarray(jssim.psnr(jnp.asarray(x), jnp.asarray(y)))
+    got = ssim.psnr(torch.from_numpy(x), torch.from_numpy(y))
+    assert want.shape == tuple(got.shape) == (3, 1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    for b in range(3):
+        np.testing.assert_allclose(float(got[b, 0]), float(ssim.psnr(torch.from_numpy(x[b]),
+                                                                     torch.from_numpy(y[b]))),
+                                   rtol=1e-6)
+    assert ssim.psnr(torch.from_numpy(x[0]), torch.from_numpy(y[0])).shape == ()
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     x, y = _pair(4, 16, 16)
     with pytest.raises(ValueError):
