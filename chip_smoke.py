@@ -15,8 +15,9 @@ Phases:
      longer than 1,024 (a long walk); C also run twice for a bitwise
      check, and A and C run again with the tiles in raster order in place
      of binning's longest-first schedule, which must give the same bits;
-     Kernels B and D (SSIM forward and backward) at three sizes, B also
-     twice;
+     Kernels B and D (SSIM forward and backward), bit for bit, at six
+     sizes from one smaller than a tile to 1080x1920, each also twice, D
+     also without dy;
   4. the render slice: the port's render and metrics entry points on the
      trained flagship model (assets/flagship/point_cloud.ply) and the
      8-view test split of data/flagship800, held per view to the JAX
@@ -75,6 +76,7 @@ from sgs_tpu_torch.render.cli import main as render_main
 from sgs_tpu_torch.render.cli import render_sets
 from sgs_tpu_torch.render.pipeline import project_and_shade, render
 from sgs_tpu_torch.render.tiled import bin_gaussians, kernel_args
+from sgs_tpu_torch.tools.ssim_times import time_ms
 from sgs_tpu_torch.train.__main__ import main as train_main
 from sgs_tpu_torch.train.checkpoint import save_checkpoint
 from sgs_tpu_torch.train.loop import TrainState, eval_render, train_step
@@ -104,15 +106,15 @@ SH_DEGREE = 3
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-SSIM_RTOL, SSIM_ATOL = 1e-5, 1e-6
 PSNR_BAR, SSIM_BAR = 0.02, 5e-4
-# Kernels A and C equal their plain versions bit for bit (the same
-# arithmetic in the same order, --fmad=false). Kernel D against its plain
-# version: rtol 1e-5 plus an atol of 1e-6 of the largest gradient; the
-# training step's parameter gradients through the kernels against the
-# plain path's: rtol 1e-4 plus 1e-6 of each field's largest gradient.
-BWD_RTOL, BWD_ATOL_SCALE = 1e-5, 1e-6
+# Kernels A-D equal their plain versions bit for bit (the same arithmetic
+# in the same order, --fmad=false). The training step's parameter
+# gradients through the kernels against the plain path's: rtol 1e-4 plus
+# 1e-6 of each field's largest gradient.
 GRAD_RTOL, GRAD_ATOL_SCALE = 1e-4, 1e-6
+# (7, 9) is smaller than a tile; (100, 244) takes the 16-byte loads with
+# tiles ragged both ways; 1080x1920 is ragged along H only (1920 = 60 x 32)
+SSIM_SIZES = [(7, 9), (37, 53), (64, 128), (100, 244), (800, 800), (1080, 1920)]
 
 
 def say(*parts) -> None:
@@ -120,18 +122,9 @@ def say(*parts) -> None:
 
 
 def time_cuda(fn, reps: int) -> float:
-    """Mean ms of `fn` over `reps` calls after three warm-ups, by CUDA events."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    """Mean ms of `fn` over `reps` calls by CUDA events, host time included
+    (a stage of the host-bound training step)."""
+    return time_ms(fn, reps, hide_host=False)
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -229,16 +222,15 @@ def ssim_pair(h, w, seed, dev):
 
 
 def compare_ssim(x, y) -> float:
-    got = ssim_ops.ssim_forward(x, y)
-    again = ssim_ops.ssim_forward(x, y)
-    want = ssim_ops.ssim_plain(x, y)
-    got_v, again_v, want_v = float(got), float(again), float(want)
+    """Kernel B twice and against its plain version, bit for bit; returns
+    max |err| (0)."""
+    got_v, again_v = float(ssim_ops.ssim_forward(x, y)), float(ssim_ops.ssim_forward(x, y))
+    want_v = float(ssim_ops.ssim_plain(x, y))
     if got_v != again_v:
         raise AssertionError(f"Kernel B is not bitwise repeatable: {got_v} vs {again_v}")
-    err = abs(got_v - want_v)
-    if err > SSIM_ATOL + SSIM_RTOL * abs(want_v):
-        raise AssertionError(f"Kernel B {got_v} differs from its plain version {want_v}")
-    return err
+    if got_v != want_v:
+        raise AssertionError(f"Kernel B {got_v!r} differs from its plain version {want_v!r}")
+    return 0.0
 
 
 def backward_args(bins, args, dev, seed):
@@ -248,13 +240,6 @@ def backward_args(bins, args, dev, seed):
     dc = torch.randn((3, args[6], args[5]), generator=g, device=dev)
     bg = torch.rand(3, generator=g, device=dev)
     return (*args, t_final, n_contrib, dc, bg, bins["perm"], bins["rank_start"], bins["order"])
-
-
-def rel_err(got, want, atol_scale):
-    """max |got - want| and whether it is within rtol + atol_scale * max|want|."""
-    err = (got - want).abs()
-    ok = bool((err <= BWD_RTOL * want.abs() + atol_scale * float(want.abs().max())).all())
-    return float(err.max()), ok
 
 
 def compare_raster_backward(bargs) -> float:
@@ -307,16 +292,22 @@ def long_run_scene(dev, width=512, height=384, seed=2):
 
 
 def compare_ssim_backward(x, y, cot) -> float:
+    """Kernel D twice, and without dy, against its plain version, bit for
+    bit; returns max |err| (0)."""
     got = ssim_ops.ssim_backward(x, y, cot)
+    again = ssim_ops.ssim_backward(x, y, cot)
+    dx_only, none = ssim_ops.ssim_backward(x, y, cot, with_dy=False)
     want = ssim_ops.ssim_backward_plain(x, y, cot)
     torch.cuda.synchronize()
-    worst = 0.0
-    for g, w in zip(got, want):
-        err, ok = rel_err(g, w, BWD_ATOL_SCALE)
-        if not ok:
-            raise AssertionError(f"Kernel D differs from its plain version: max |err| {err}")
-        worst = max(worst, err)
-    return worst
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError("Kernel D is not bitwise repeatable")
+    if none is not None or not torch.equal(dx_only, want[0]):
+        raise AssertionError("Kernel D without dy differs from its plain version's dx")
+    for name, g, w in zip(("dx", "dy"), got, want):
+        if not torch.equal(g, w) or not torch.isfinite(g).all():
+            raise AssertionError(f"Kernel D {name} differs from its plain version at {int((g != w).sum())} "
+                                 f"elements: max |err| {float((g - w).abs().max())}")
+    return 0.0
 
 
 def phase_kernels(dev) -> dict:
@@ -356,13 +347,12 @@ def phase_kernels(dev) -> dict:
         f"{int(bargs[8].max())}: A and C equal to their plain versions bit for bit, C repeatable, "
         f"both independent of the schedule")
     errs_b, errs_d = [], []
-    for i, (h, w) in enumerate([(37, 53), (64, 128), (800, 800)]):
+    for i, (h, w) in enumerate(SSIM_SIZES):
         x, y = ssim_pair(h, w, i, dev)
         errs_b.append(compare_ssim(x, y))
         errs_d.append(compare_ssim_backward(x, y, torch.tensor(0.7, device=dev)))
-        say(f"[3 kernels] B ssim forward {h}x{w}: |err| {errs_b[-1]:.3g} "
-            f"(rtol {SSIM_RTOL}, atol {SSIM_ATOL}), bitwise repeatable; "
-            f"D ssim backward: max |err| {errs_d[-1]:.3g} (rtol {BWD_RTOL}, atol {BWD_ATOL_SCALE} x max)")
+        say(f"[3 kernels] B ssim forward and D ssim backward {h}x{w}: equal to their plain "
+            f"versions bit for bit, bitwise repeatable; D without dy gives the same dx")
     return {"A": err_a, "B": max(errs_b), "C": err_c, "D": max(errs_d)}
 
 
@@ -554,10 +544,11 @@ def phase_step(dev, model, view) -> dict:
     cot = torch.tensor(-0.2, device=dev)
     err_c = compare_raster_backward(bargs)
     err_d = compare_ssim_backward(img, gt, cot)
+    err_b = compare_ssim(img, gt)
     say(f"[5 step] view 0: gradients through the kernels vs the plain path, max |err| / field max: "
         + ", ".join(f"{f} {v:.2e}" for f, v in worst.items())
-        + f" (rtol {GRAD_RTOL}, atol {GRAD_ATOL_SCALE} x max); C on the step's inputs equal to "
-          f"its plain version bit for bit, D max |err| {err_d:.3g}")
+        + f" (rtol {GRAD_RTOL}, atol {GRAD_ATOL_SCALE} x max); B, C and D on the step's inputs "
+          f"equal to their plain versions bit for bit")
 
     # stages of one step, CUDA events, means over the reps
     leaves = {f: getattr(model, f).detach().requires_grad_(True) for f in PARAM_FIELDS}
@@ -565,13 +556,14 @@ def phase_step(dev, model, view) -> dict:
     stages = {}
     stages["projection+SH"] = time_cuda(lambda: project_and_shade(cam, grad_model.render_inputs(SH_DEGREE)), 5)
     stages["binning"] = time_cuda(lambda: raster_inputs(p, w, h), 5)
-    stages["A"] = time_cuda(lambda: flat_raster.rasterize_tiles(*args), 10)
-    stages["B"] = time_cuda(lambda: ssim_ops.ssim_forward(img, gt), 20)
+    stages["A"] = time_ms(lambda: flat_raster.rasterize_tiles(*args), 10)
+    stages["B"] = time_ms(lambda: ssim_ops.ssim_forward(img, gt), 20)
     inst = torch.empty((bargs[2].shape[0], flat_raster.N_GRADS), device=dev)
-    stages["C walk"] = time_cuda(lambda: flat_raster.raster_backward_walk(bargs, inst), 10)
-    stages["C reduction"] = time_cuda(lambda: flat_raster.reduce_runs(inst, bargs[12], bargs[13]), 10)
-    c_ms = time_cuda(lambda: flat_raster.rasterize_tiles_backward(*bargs), 10)
-    stages["D"] = time_cuda(lambda: ssim_ops.ssim_backward(img, gt, cot), 20)
+    stages["C walk"] = time_ms(lambda: flat_raster.raster_backward_walk(bargs, inst), 10)
+    stages["C reduction"] = time_ms(lambda: flat_raster.reduce_runs(inst, bargs[12], bargs[13]), 10)
+    c_ms = time_ms(lambda: flat_raster.rasterize_tiles_backward(*bargs), 10)
+    stages["D"] = time_ms(lambda: ssim_ops.ssim_backward(img, gt, cot, with_dy=False), 20)
+    d_both_ms = time_ms(lambda: ssim_ops.ssim_backward(img, gt, cot), 20)
     pg = project_and_shade(cam, grad_model.render_inputs(SH_DEGREE))
     outs = [pg["mean2d"], pg["conic"], pg["rgb"], pg["opacity"]]
     cots = [torch.ones_like(o) for o in outs]
@@ -586,10 +578,11 @@ def phase_step(dev, model, view) -> dict:
     step_ms = time_cuda(lambda: train_step(state, cam, gt, bg, lrs, SH_DEGREE), 5)
     say(f"[5 step] one training step at {model.num_alive} Gaussians, 800x800: {step_ms:.3f} ms; "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
-        + f" ms (sum {sum(stages.values()):.3f} ms); C as one wrapper call {c_ms:.3f} ms")
+        + f" ms (sum {sum(stages.values()):.3f} ms); C as one wrapper call {c_ms:.3f} ms; "
+          f"D with dy {d_both_ms:.4f} ms, without (the step's call) {stages['D']:.4f} ms")
     profile_steps(lambda: train_step(state, cam, gt, bg, lrs, SH_DEGREE))
-    return {"bargs": bargs, "img": img, "gt": gt, "cot": cot, "C": err_c, "D": err_d,
-            "c_ms": c_ms, "d_ms": stages["D"], "stages": stages, "step_ms": step_ms}
+    return {"bargs": bargs, "img": img, "gt": gt, "cot": cot, "B": err_b, "C": err_c, "D": err_d,
+            "c_ms": c_ms, "d_ms": d_both_ms, "stages": stages, "step_ms": step_ms}
 
 
 def profile_steps(step, n: int = 5) -> None:
@@ -671,8 +664,8 @@ def phase_timing(dev, errs: dict, launches: dict, views, step: dict) -> list:
         p = project_and_shade(v.camera, model.render_inputs(SH_DEGREE))
         w, h = v.camera.image_width, v.camera.image_height
         _, args = raster_inputs(p, w, h)
-        a_ms = time_cuda(lambda: flat_raster.rasterize_tiles(*args), 10)
-        b_ms = time_cuda(lambda: ssim_ops.ssim_forward(q, gt), 20)
+        a_ms = time_ms(lambda: flat_raster.rasterize_tiles(*args), 10)
+        b_ms = time_ms(lambda: ssim_ops.ssim_forward(q, gt), 20)
         say(f"[7 timing] view {i}: {out['n_instances']} instances, render {render_ms:.3f} ms "
             f"(kernel A {a_ms:.3f}), ssim {ssim_ms:.3f} ms (kernel B {b_ms:.3f})")
         tot["inst"] += out["n_instances"]
@@ -703,10 +696,10 @@ def phase_timing(dev, errs: dict, launches: dict, views, step: dict) -> list:
     errs["B"] = max(errs["B"], compare_ssim(q, gt))
     plain_b_ms = time_cuda(lambda: ssim_ops.ssim_plain(q, gt), 5)
     w1d = ssim_ops.gaussian_window().to(dev)
-    lib_b_ms = time_cuda(lambda: conv2d_ssim(q, gt, w1d), 20)
+    lib_b_ms = time_ms(lambda: conv2d_ssim(q, gt, w1d), 20)
     lib_err = abs(float(conv2d_ssim(q, gt, w1d)) - float(ssim_ops.ssim_plain(q, gt)))
     h, w = q.shape[1:]
-    n_part = 3 * (-(-h // ssim_ops.TILE)) * (-(-w // ssim_ops.TILE))
+    n_part = 3 * (-(-h // ssim_ops.TILE_H)) * (-(-w // ssim_ops.TILE_W))
     b_bound, b_by = bound_ms(2 * 4 * 3 * h * w + 2 * 4 * n_part + 4, ssim_ops.OPS_PER_PIXEL * 3 * h * w)
 
     # Kernels C and D on the training step's inputs (phase 5, view 0)
@@ -733,7 +726,7 @@ def phase_timing(dev, errs: dict, launches: dict, views, step: dict) -> list:
     plain_d_ms = time_cuda(lambda: ssim_ops.ssim_backward_plain(img, sgt, cot), 3)
     xg = img.clone().requires_grad_(True)
     lib_out = conv2d_ssim(xg, sgt, w1d)
-    lib_d_ms = time_cuda(lambda: torch.autograd.grad(lib_out, xg, retain_graph=True), 20)
+    lib_d_ms = time_ms(lambda: torch.autograd.grad(lib_out, xg, retain_graph=True), 20)
     d_bound, d_by = bound_ms(4 * 4 * 3 * hw + 4, ssim_ops.OPS_PER_PIXEL_BWD * 3 * hw)
     say(f"[7 timing] view 0: plain A {plain_a_ms:.3f} ms, plain B {plain_b_ms:.3f} ms, "
         f"conv2d SSIM {lib_b_ms:.3f} ms (|d| {lib_err:.2e}); kernel C {step['c_ms']:.3f} ms, "
@@ -745,10 +738,10 @@ def phase_timing(dev, errs: dict, launches: dict, views, step: dict) -> list:
     a_raster = (*args[:3], raster_order, *args[4:])
     c_raster = (*bargs[:3], raster_order, *bargs[4:])
     inst = torch.empty((m, flat_raster.N_GRADS), device=dev)
-    order_ms = {"A": time_cuda(lambda: flat_raster.rasterize_tiles(*args), 20),
-                "A raster order": time_cuda(lambda: flat_raster.rasterize_tiles(*a_raster), 20),
-                "C walk": time_cuda(lambda: flat_raster.raster_backward_walk(bargs, inst), 20),
-                "C walk raster order": time_cuda(lambda: flat_raster.raster_backward_walk(c_raster, inst), 20)}
+    order_ms = {"A": time_ms(lambda: flat_raster.rasterize_tiles(*args), 20),
+                "A raster order": time_ms(lambda: flat_raster.rasterize_tiles(*a_raster), 20),
+                "C walk": time_ms(lambda: flat_raster.raster_backward_walk(bargs, inst), 20),
+                "C walk raster order": time_ms(lambda: flat_raster.raster_backward_walk(c_raster, inst), 20)}
     say("[7 timing] view 0, tile order: " + ", ".join(f"{k} {v:.4f} ms" for k, v in order_ms.items()))
     st = step["stages"]
     say(f"[7 timing] view 0, kernel C apart: walk {st['C walk']:.4f} ms (bound {walk_bound[0]:.4f} ms, "
@@ -789,6 +782,7 @@ def main(device: str = "cuda") -> int:
     train = phase_train_flagship(dev, model)
     views = read_nerf_synthetic_split(str(FLAGSHIP_SCENE), "test", WHITE_BACKGROUND, -1, dev)
     step = phase_step(dev, model, views[0])
+    errs["B"] = max(errs["B"], step["B"])
     errs["C"] = max(errs["C"], step["C"])
     errs["D"] = max(errs["D"], step["D"])
     phase_scratch(dev)

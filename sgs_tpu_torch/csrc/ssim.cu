@@ -1,17 +1,25 @@
-// SSIM forward: mean SSIM of a (3, H, W) image pair with the reference's
-// 11-tap, sigma 1.5 separable Gaussian window and zero padding.
+// SSIM forward (Kernel B): mean SSIM of a (3, H, W) image pair with the
+// reference's 11-tap, sigma 1.5 separable Gaussian window and zero
+// padding, in one launch.
 //
 // Replaces the TPU kernels sgs_tpu/ops/pallas/ssim_kernels.py::ssim_forward
 // (_fwd1_kernel: products and one 1-D pass; _fwd2_kernel: the other pass,
 // the SSIM map and masked partial sums). The TPU version streams row
 // blocks with shifted-BlockSpec halos and transposes in between because
-// lane rolls are costly there. Here one block owns a 16x16 output tile of
-// one channel: it loads the tile plus a 5-pixel halo of x and y into
-// shared memory (zeros outside the image), forms x, y, x^2, y^2 and xy,
-// runs the 11-tap pass along W and then along H in shared memory, forms
-// the SSIM map and writes one partial sum. A second kernel of one block
-// sums the partials in a fixed order, so the mean is bitwise the same
-// from run to run: no float atomics.
+// lane rolls are costly there. Here one block of 384 threads owns a 48x32
+// (rows x columns) output tile of one channel: x and y plus a 5-pixel
+// halo into shared memory (zeros outside the image), the statistics by
+// the sliding passes of ssim_common.cuh (the first half of Kernel D), W
+// then H, and the SSIM map. The tile and the strips were chosen by
+// measurement (tools/ssim_ablation.py times the alternatives).
+//
+// The sum has a fixed order, so the mean is bitwise the same from run to
+// run and equals ssim_plain's: each thread adds its strip of 4 rows of one
+// column, the 32 lanes (columns) meet in an xor butterfly, the 12 warps
+// are added in order; the last block to finish (an integer ticket, no
+// float atomics) sums the per-tile partials the same way, thread t taking
+// partials t, t + 384, ... in turn, and divides by 3 H W. ops/ssim.py's
+// TILE_H, TILE_W and THREADS must match the constants below.
 //
 // The file is built with --fmad=false and sums the taps in the plain
 // version's order, so every map value rounds as the plain PyTorch
@@ -21,142 +29,145 @@
 //
 // Bound: about 240 f32 operations per pixel and channel against 8 bytes
 // of input, so at 800x800 the work is bound by operations more than by
-// bytes. The 15-channel residual P_h_t that the TPU forward also returns
-// feeds only the backward kernel and is not produced here.
+// bytes; without contracted multiply-adds the kernel can reach at most
+// about half of that bound. The 15-channel residual P_h_t that the TPU
+// forward also returns feeds only the backward kernel and is not produced
+// here.
 
-#include <cuda_runtime.h>
+#include "ssim_common.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kWin = 11;
-constexpr int kPad = kWin / 2;
-constexpr int kSpan = kTile + 2 * kPad;  // 26
-constexpr int kThreads = kTile * kTile;
-constexpr float kC1 = (float)(0.01 * 0.01);
-constexpr float kC2 = (float)(0.03 * 0.03);
+using namespace ssim;
 
-struct Window {
-  float w[kWin];
-};
+constexpr int kTileH = 48;
+constexpr int kTileW = 32;
+constexpr int kThreads = 384;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStripW = 4;                // outputs per thread along W
+constexpr int kStripH = kTileH / kWarps;  // rows per thread along H: one strip per warp
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kTileW == 32 && kTileH % kWarps == 0,
+              "ssim_plain's order: lanes along W, one strip of rows per warp");
 
-__global__ void __launch_bounds__(kThreads)
-ssim_partials_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                     int height, int width, Window win, float* __restrict__ partials)
+constexpr int kLeft = round_up(kPad, 4);  // input columns left of the tile, 16-byte aligned
+constexpr int kInRows = kTileH + 2 * kPad;
+constexpr int kInCols = round_up(kLeft + kTileW + kPad, 4);
+constexpr int kWCols = round_up(kTileW, kStripW);
+constexpr int kInPitch = odd(cmax(kInCols, kLeft - kPad + kWCols + kWin - 1));
+constexpr int kHPitch = odd(kWCols);
+constexpr int kHMap = kInRows * kHPitch;
+constexpr size_t kSmemBytes = sizeof(float) * (2 * kInRows * kInPitch + 5 * kHMap);
+
+// Sum of v over the block, valid in thread 0: an xor butterfly in each
+// warp, then the warps in order from 0.0f.
+__device__ __forceinline__ float block_sum(float v, float* red)
 {
-  __shared__ float sx[kSpan][kSpan];
-  __shared__ float sy[kSpan][kSpan];
-  __shared__ float sh[5][kSpan][kTile];
-  __shared__ float red[kThreads];
-
-  const int t = threadIdx.x;
-  const int c = blockIdx.z;
-  const int row0 = blockIdx.y * kTile - kPad;
-  const int col0 = blockIdx.x * kTile - kPad;
-  const size_t plane = (size_t)height * width;
-  const float* xc = x + c * plane;
-  const float* yc = y + c * plane;
-
-  for (int i = t; i < kSpan * kSpan; i += kThreads) {
-    const int r = i / kSpan, q = i % kSpan;
-    const int gr = row0 + r, gq = col0 + q;
-    const bool in = gr >= 0 && gr < height && gq >= 0 && gq < width;
-    sx[r][q] = in ? xc[(size_t)gr * width + gq] : 0.0f;
-    sy[r][q] = in ? yc[(size_t)gr * width + gq] : 0.0f;
-  }
-  __syncthreads();
-
-  // pass along W for every halo row
-  for (int i = t; i < kSpan * kTile; i += kThreads) {
-    const int r = i / kTile, q = i % kTile;
-    float a = 0.0f, b = 0.0f, cxx = 0.0f, cyy = 0.0f, cxy = 0.0f;
 #pragma unroll
-    for (int k = 0; k < kWin; ++k) {
-      const float vx = sx[r][q + k];
-      const float vy = sy[r][q + k];
-      const float wk = win.w[k];
-      a += wk * vx;
-      b += wk * vy;
-      cxx += wk * (vx * vx);
-      cyy += wk * (vy * vy);
-      cxy += wk * (vx * vy);
-    }
-    sh[0][r][q] = a;
-    sh[1][r][q] = b;
-    sh[2][r][q] = cxx;
-    sh[3][r][q] = cyy;
-    sh[4][r][q] = cxy;
-  }
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
-
-  // pass along H, then the SSIM map for this thread's pixel
-  const int ly = t / kTile, lx = t % kTile;
-  float m[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-  for (int k = 0; k < kWin; ++k) {
-    const float wk = win.w[k];
-#pragma unroll
-    for (int p = 0; p < 5; ++p) m[p] += wk * sh[p][ly + k][lx];
-  }
-  const int gy = blockIdx.y * kTile + ly, gx = blockIdx.x * kTile + lx;
-  float val = 0.0f;
-  if (gy < height && gx < width) {
-    const float mu1 = m[0], mu2 = m[1];
-    const float mu1_sq = mu1 * mu1, mu2_sq = mu2 * mu2, mu1_mu2 = mu1 * mu2;
-    const float sigma1_sq = m[2] - mu1_sq;
-    const float sigma2_sq = m[3] - mu2_sq;
-    const float sigma12 = m[4] - mu1_mu2;
-    val = ((2.0f * mu1_mu2 + kC1) * (2.0f * sigma12 + kC2)) /
-          ((mu1_sq + mu2_sq + kC1) * (sigma1_sq + sigma2_sq + kC2));
-  }
-
-  red[t] = val;
+  float s = 0.0f;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < kWarps; ++w) s += red[w];
   __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (t < s) red[t] += red[t + s];
-    __syncthreads();
-  }
-  if (t == 0) {
-    const int blocks = gridDim.x * gridDim.y;
-    partials[c * blocks + blockIdx.y * gridDim.x + blockIdx.x] = red[0];
-  }
+  return s;
 }
 
-constexpr int kReduceThreads = 1024;
-
-__global__ void __launch_bounds__(kReduceThreads)
-ssim_reduce_kernel(const float* __restrict__ partials, int n, float count,
-                   float* __restrict__ out)
+// The mean of n partials: thread t adds partials t, t + kThreads, ... in
+// turn, then block_sum, then one division.
+__device__ __forceinline__ void final_sum(const float* partials, int n, float count, float* red,
+                                          float* out)
 {
-  __shared__ float red[kReduceThreads];
-  const int t = threadIdx.x;
-  float s = 0.0f;
-  for (int i = t; i < n; i += kReduceThreads) s += partials[i];
-  red[t] = s;
+  float a = 0.0f;
+  for (int i = threadIdx.x; i < n; i += kThreads) a += __ldcg(partials + i);
+  a = block_sum(a, red);
+  if (threadIdx.x == 0) out[0] = a / count;
+}
+
+// Calls on two streams at once must not share `ticket`: it counts the
+// blocks of one launch, and the last block resets it to 0.
+__global__ void __launch_bounds__(kThreads)
+ssim_forward_kernel(const float* __restrict__ x, const float* __restrict__ y, int height,
+                    int width, Window win, float count, float* __restrict__ partials,
+                    unsigned* __restrict__ ticket, float* __restrict__ out)
+{
+  extern __shared__ float smem[];
+  float* sx = smem;
+  float* sy = sx + kInRows * kInPitch;
+  float* sh = sy + kInRows * kInPitch;
+  __shared__ float red[kWarps];
+  __shared__ bool last;
+
+  const int c = blockIdx.z;
+  const int ty0 = blockIdx.y * kTileH, tx0 = blockIdx.x * kTileW;
+  const size_t plane = (size_t)height * width;
+  load_pair(x + c * plane, y + c * plane, height, width, ty0 - kPad, tx0 - kLeft, kInRows,
+            kInCols, kInPitch, sx, sy);
   __syncthreads();
-  for (int k = kReduceThreads / 2; k > 0; k >>= 1) {
-    if (t < k) red[t] += red[t + k];
-    __syncthreads();
+
+  // the statistics along W, on every input row and the tile's columns
+  for (int i = threadIdx.x; i < kInRows * (kWCols / kStripW); i += kThreads) {
+    const int r = i % kInRows, q0 = (i / kInRows) * kStripW;
+    const int off = r * kInPitch + kLeft - kPad + q0;
+    float acc[5][kStripW];
+    slide_stats<kStripW>(sx + off, sy + off, 1, win, acc);
+#pragma unroll
+    for (int m = 0; m < 5; ++m)
+#pragma unroll
+      for (int o = 0; o < kStripW; ++o) sh[m * kHMap + r * kHPitch + q0 + o] = acc[m][o];
   }
-  if (t == 0) out[0] = red[0] / count;
+  __syncthreads();
+
+  // along H: thread t takes column t % 32 and rows kStripH * (t / 32) on
+  const int q = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * kStripH;
+  float m[5][kStripH];
+  slide<5, kStripH>(sh + r0 * kHPitch + q, kHMap, kHPitch, win, m);
+  const int gx = tx0 + q;
+  float s = 0.0f;
+#pragma unroll
+  for (int o = 0; o < kStripH; ++o) {
+    const int gy = ty0 + r0 + o;
+    float val = 0.0f;
+    if (gy < height && gx < width) {
+      const float mu1 = m[0][o], mu2 = m[1][o];
+      const float mu1_sq = mu1 * mu1, mu2_sq = mu2 * mu2, mu1_mu2 = mu1 * mu2;
+      const float sigma1_sq = m[2][o] - mu1_sq;
+      const float sigma2_sq = m[3][o] - mu2_sq;
+      const float sigma12 = m[4][o] - mu1_mu2;
+      val = ((2.0f * mu1_mu2 + kC1) * (2.0f * sigma12 + kC2)) /
+            ((mu1_sq + mu2_sq + kC1) * (sigma1_sq + sigma2_sq + kC2));
+    }
+    s += val;
+  }
+  s = block_sum(s, red);
+
+  const int blocks = gridDim.x * gridDim.y * gridDim.z;
+  if (threadIdx.x == 0) {
+    partials[(c * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = s;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == (unsigned)(blocks - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  final_sum(partials, blocks, count, red, out);
+  if (threadIdx.x == 0) *ticket = 0u;
 }
 
 }  // namespace
 
-extern "C" int ssim_partials(void* x, void* y, int height, int width,
-                             const float* window, void* partials, void* stream)
+extern "C" int ssim_forward(void* x, void* y, int height, int width, const float* window,
+                            float count, void* partials, void* ticket, void* out, void* stream)
 {
   Window win;
   for (int k = 0; k < kWin; ++k) win.w[k] = window[k];
-  dim3 grid((width + kTile - 1) / kTile, (height + kTile - 1) / kTile, 3);
-  ssim_partials_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)y, height, width, win, (float*)partials);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int ssim_reduce(void* partials, int n, float count, void* out, void* stream)
-{
-  ssim_reduce_kernel<<<1, kReduceThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)partials, n, count, (float*)out);
+  const cudaError_t err = cudaFuncSetAttribute(
+      ssim_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH, 3);
+  ssim_forward_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)y, height, width, win, count, (float*)partials,
+      (unsigned*)ticket, (float*)out);
   return (int)cudaGetLastError();
 }

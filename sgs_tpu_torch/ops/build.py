@@ -4,7 +4,8 @@ Each source in `sgs_tpu_torch/csrc/` exposes `extern "C"` launchers that
 take `void*` pointers, ints and a `cudaStream_t` and return
 `cudaGetLastError()`. At first use it is compiled for sm_90a into a shared
 library under `build/sgs_tpu_torch/` at the repository root, named by a
-hash of the source, the flags and `nvcc --version`. The library is written
+hash of the source, the headers it includes from its own directory, the
+flags and `nvcc --version`. The library is written
 under a temporary name and renamed, so concurrent builds never load a
 half-written file; nvcc's own scratch files go to `build/sgs_tpu_torch/tmp`,
 so a build writes nothing outside the repository. Importing this module
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -68,7 +70,10 @@ class CudaKernel:
             [nvcc, "--version"], check=True, capture_output=True, text=True
         ).stdout
         h = hashlib.sha256()
-        h.update(self.source.read_bytes())
+        text = self.source.read_bytes()
+        h.update(text)
+        for name in re.findall(rb'^#include "([^"]+)"', text, re.M):
+            h.update((self.source.parent / name.decode()).read_bytes())
         h.update("\0".join(self.flags).encode())
         h.update(version.encode())
         return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"

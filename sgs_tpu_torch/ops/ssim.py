@@ -6,14 +6,15 @@ kernel (Kernel D), which replaces `ssim_backward` there.
 SSIM uses the reference windowing: an 11x11 Gaussian window (sigma 1.5,
 normalised) that factors into two 1-D passes, zero padding of 5, C1 =
 0.01^2, C2 = 0.03^2, and the mean over the full map. On a CUDA tensor
-`ssim` launches the hand-written kernel in `csrc/ssim.cu` (one launch for
-the per-block partial sums, one for their fixed-order sum); on a CPU
-tensor it runs the plain version, a shift-and-add transcription of
-`_ssim_jnp`. `SSIMFunction` pairs the two: Kernel B forward and Kernel D
-backward on the card (D1 recomputes the windowed statistics and forms the
-pointwise partials of the map, D2 runs them through the window and
-combines them with x and y), the plain versions on the CPU. There is no
-fallback from one to the other.
+`ssim` launches the hand-written kernel in `csrc/ssim.cu` (one launch:
+per-tile partial sums, then the last block sums them in a fixed order);
+on a CPU tensor it runs the plain version, a shift-and-add transcription
+of `_ssim_jnp` whose mean is summed in the kernel's order, so the two
+agree bit for bit. `SSIMFunction` pairs the two: Kernel B forward and
+Kernel D backward on the card (one launch that recomputes the windowed
+statistics, forms the pointwise partials of the map on the tile and a
+ring, runs them through the window and combines them with x and y), the
+plain versions on the CPU. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -24,27 +25,28 @@ import functools
 import torch
 
 from sgs_tpu_torch.ops.build import FLOAT, INT, PTR, CudaKernel
+from sgs_tpu_torch.ops.flat_raster import _butterfly
 
 WINDOW = 11
 PAD = WINDOW // 2
 SIGMA = 1.5
-TILE = 16  # output tile of the kernel, per channel
+# Kernel B's output tile (per channel) and block: the 32 lanes of a warp
+# along W, one strip of TILE_H // WARPS rows per warp. `ssim_plain` sums
+# its map in that order.
+TILE_H, TILE_W = 48, 32
+THREADS = 384
+WARPS = THREADS // 32
 
 KERNEL = CudaKernel(
     "ssim.cu",
-    {
-        "ssim_partials": [PTR, PTR, INT, INT, ctypes.POINTER(ctypes.c_float), PTR, PTR],
-        "ssim_reduce": [PTR, INT, FLOAT, PTR, PTR],
-    },
+    {"ssim_forward": [PTR, PTR, INT, INT, ctypes.POINTER(ctypes.c_float), FLOAT, PTR, PTR, PTR,
+                      PTR]},
     extra_flags=("--fmad=false",),
 )
 BACKWARD = CudaKernel(
     "ssim_backward.cu",
-    {
-        "ssim_gmap": [PTR, PTR, INT, INT, ctypes.POINTER(ctypes.c_float), PTR, PTR],
-        "ssim_combine": [PTR, PTR, PTR, PTR, FLOAT, INT, INT,
-                         ctypes.POINTER(ctypes.c_float), PTR, PTR, PTR],
-    },
+    {"ssim_backward": [PTR, PTR, PTR, FLOAT, INT, INT, ctypes.POINTER(ctypes.c_float), PTR, PTR,
+                       PTR]},
     extra_flags=("--fmad=false",),
 )
 
@@ -83,8 +85,41 @@ def _conv1d_axis(x: torch.Tensor, w1d: torch.Tensor, dim: int) -> torch.Tensor:
     return out
 
 
+def _in_turn(v: torch.Tensor) -> torch.Tensor:
+    """Sum the last axis one element after another from +0."""
+    acc = torch.zeros_like(v[..., 0])
+    for k in range(v.shape[-1]):
+        acc = acc + v[..., k]
+    return acc
+
+
+def _block_sum(v: torch.Tensor) -> torch.Tensor:
+    """Kernel B's sum over a block of THREADS values (last axis, thread
+    order): each warp's 32 lanes by the butterfly, then the warps in turn."""
+    return _in_turn(_butterfly(v.reshape(*v.shape[:-1], WARPS, 32))[..., 0])
+
+
+def ordered_mean(ssim_map: torch.Tensor) -> torch.Tensor:
+    """Mean of a (C, H, W) map in Kernel B's order: per TILE_H x TILE_W
+    tile, each thread's strip of TILE_H // WARPS rows of one column in
+    turn, then the block sum (lanes are columns, warps are strips); then
+    the tile partials in index order (channel, tile row, tile column),
+    thread t taking partials t, t + THREADS, ... in turn, then the block
+    sum; then one division by C H W. Zeros pad the map to whole tiles."""
+    c, h, w = ssim_map.shape
+    ty, tx = -(-h // TILE_H), -(-w // TILE_W)
+    m = torch.nn.functional.pad(ssim_map, (0, tx * TILE_W - w, 0, ty * TILE_H - h))
+    m = m.reshape(c, ty, WARPS, TILE_H // WARPS, tx, TILE_W).permute(0, 1, 4, 2, 5, 3)
+    partials = _block_sum(_in_turn(m).reshape(c, ty, tx, THREADS)).reshape(-1)
+    rounds = -(-partials.shape[0] // THREADS)
+    lanes = torch.nn.functional.pad(partials, (0, rounds * THREADS - partials.shape[0]))
+    total = _block_sum(_in_turn(lanes.reshape(rounds, THREADS).T))
+    return total / torch.full_like(total, float(c * h * w))
+
+
 def ssim_plain(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
-    """Mean SSIM of a (C, H, W) pair, separable pass along W then H."""
+    """Mean SSIM of a (C, H, W) pair, separable pass along W then H, the
+    mean summed in Kernel B's order (`ordered_mean`)."""
     w1d = gaussian_window().to(img1.device)
 
     def conv(v):
@@ -98,7 +133,7 @@ def ssim_plain(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     ssim_map = ((2 * mu1_mu2 + C1) * (2 * sigma12 + C2)) / (
         (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2)
     )
-    return torch.mean(ssim_map)
+    return ordered_mean(ssim_map)
 
 
 def _check_pair(x: torch.Tensor, y: torch.Tensor, fn: str) -> None:
@@ -113,18 +148,28 @@ def _check_pair(x: torch.Tensor, y: torch.Tensor, fn: str) -> None:
         raise ValueError("x and y must have one shape and one device")
 
 
+_TICKETS: dict = {}
+
+
+def _ticket(dev: torch.device) -> torch.Tensor:
+    """Kernel B's block counter on `dev`: allocated and zeroed once; each
+    launch's last block resets it. Two launches running at once on two
+    streams must not share it; the port launches B on one stream."""
+    if dev not in _TICKETS:
+        _TICKETS[dev] = torch.zeros((), dtype=torch.int32, device=dev)
+    return _TICKETS[dev]
+
+
 def ssim_forward(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Kernel B on (3, H, W) f32 CUDA tensors; returns a 0-d tensor."""
     _check_pair(x, y, "ssim_forward")
     _, h, w = x.shape
-    n_partials = 3 * (-(-h // TILE)) * (-(-w // TILE))
-    partials = torch.empty(n_partials, dtype=torch.float32, device=x.device)
+    partials = torch.empty(3 * (-(-h // TILE_H)) * (-(-w // TILE_W)), dtype=torch.float32,
+                           device=x.device)
     out = torch.empty((), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    KERNEL.launch("ssim_partials", x.data_ptr(), y.data_ptr(), h, w, _window_arg(),
-                  partials.data_ptr(), stream, count=False)
-    KERNEL.launch("ssim_reduce", partials.data_ptr(), n_partials, float(3 * h * w),
-                  out.data_ptr(), stream)
+    KERNEL.launch("ssim_forward", x.data_ptr(), y.data_ptr(), h, w, _window_arg(), float(3 * h * w),
+                  partials.data_ptr(), _ticket(x.device).data_ptr(), out.data_ptr(),
+                  torch.cuda.current_stream(x.device).cuda_stream)
     return out
 
 
@@ -151,45 +196,46 @@ def _scale(cot: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return cot / torch.full_like(cot, float(3 * h * w))
 
 
-def ssim_backward_plain(x: torch.Tensor, y: torch.Tensor, cot: torch.Tensor):
-    """The same function as Kernel D: (dx, dy) of cot * mean SSIM."""
+def ssim_backward_plain(x: torch.Tensor, y: torch.Tensor, cot: torch.Tensor, with_dy: bool = True):
+    """The same function as Kernel D: (dx, dy) of cot * mean SSIM; dy is
+    None unless `with_dy`."""
     _, h, w = x.shape
     w1d = gaussian_window().to(x.device)
 
     def conv(v):
         return _conv1d_axis(_conv1d_axis(v, w1d, 2), w1d, 1)
 
-    ga, gb, gc, gd, ge = _ssim_partials(conv(x), conv(y), conv(x * x), conv(y * y), conv(x * y))
-    a, b, c, d, e = conv(ga), conv(gb), conv(gc), conv(gd), conv(ge)
+    ga, gb, gc, _, ge = _ssim_partials(conv(x), conv(y), conv(x * x), conv(y * y), conv(x * y))
+    a, c, e = conv(ga), conv(gc), conv(ge)
     scale = _scale(cot, h, w)
     dx = (a + 2.0 * x * c + y * e) * scale
-    dy = (b + 2.0 * y * d + x * e) * scale
+    # the partials for E[x^2] and E[y^2] are one map, so D' = C'
+    dy = (conv(gb) + 2.0 * y * c + x * e) * scale if with_dy else None
     return dx, dy
 
 
-def ssim_backward(x: torch.Tensor, y: torch.Tensor, cot: torch.Tensor):
+def ssim_backward(x: torch.Tensor, y: torch.Tensor, cot: torch.Tensor, with_dy: bool = True):
     """Kernel D on (3, H, W) f32 CUDA tensors and a 0-d cotangent on the
-    card: returns (dx, dy)."""
+    card: returns (dx, dy), dy None unless `with_dy`."""
     _check_pair(x, y, "ssim_backward")
     if cot.numel() != 1 or cot.device != x.device:
         raise ValueError("cot must be one value on the images' device")
     _, h, w = x.shape
     cot = cot.to(torch.float32).reshape(()).contiguous()
-    gmap = torch.empty((5, 3, h, w), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    dy = torch.empty_like(y)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    BACKWARD.launch("ssim_gmap", x.data_ptr(), y.data_ptr(), h, w, _window_arg(),
-                    gmap.data_ptr(), stream, count=False)
-    BACKWARD.launch("ssim_combine", gmap.data_ptr(), x.data_ptr(), y.data_ptr(), cot.data_ptr(),
-                    float(3 * h * w), h, w, _window_arg(), dx.data_ptr(), dy.data_ptr(), stream)
+    dy = torch.empty_like(y) if with_dy else None
+    BACKWARD.launch("ssim_backward", x.data_ptr(), y.data_ptr(), cot.data_ptr(), float(3 * h * w),
+                    h, w, _window_arg(), dx.data_ptr(), dy.data_ptr() if with_dy else None,
+                    torch.cuda.current_stream(x.device).cuda_stream)
     return dx, dy
 
 
 class SSIMFunction(torch.autograd.Function):
     """Mean SSIM with Kernel B forward and Kernel D backward on the card;
     the plain forward and plain backward on the CPU. The counterpart of
-    the custom VJP `_ssim_fused`."""
+    the custom VJP `_ssim_fused`. The gradient for the second image is
+    computed only when it needs one (in training, the ground truth does
+    not)."""
 
     @staticmethod
     def forward(ctx, x, y):
@@ -201,9 +247,10 @@ class SSIMFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, cot):
         x, y = ctx.saved_tensors
+        with_dy = ctx.needs_input_grad[1]
         if x.device.type == "cpu":
-            return ssim_backward_plain(x, y, cot)
-        return ssim_backward(x, y, cot)
+            return ssim_backward_plain(x, y, cot, with_dy)
+        return ssim_backward(x, y, cot, with_dy)
 
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:

@@ -56,15 +56,20 @@ def test_raster_kernel_matches_plain(dev, w, h):
         assert torch.equal(g, wv), "Kernel A differs from its plain version"
 
 
-@pytest.mark.parametrize("h,w", [(37, 53), (64, 128), (800, 800)])
+SSIM_SIZES = [(7, 9), (37, 53), (64, 128), (100, 244), (800, 800), (1080, 1920)]
+
+
+@pytest.mark.parametrize("h,w", SSIM_SIZES)
 def test_ssim_kernel_matches_plain(dev, h, w):
     rng = np.random.default_rng(h)
     x = rng.uniform(0, 1, (3, h, w)).astype(np.float32)
     y = np.clip(x + rng.normal(0, 0.15, x.shape), 0, 1).astype(np.float32)
     xt, yt = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    before = ssim.KERNEL.launches
     got = float(ssim.ssim_forward(xt, yt))
+    assert ssim.KERNEL.launches == before + 1
     assert got == float(ssim.ssim_forward(xt, yt)), "not bitwise repeatable"
-    np.testing.assert_allclose(got, float(ssim.ssim_plain(xt, yt)), rtol=1e-5, atol=1e-6)
+    assert got == float(ssim.ssim_plain(xt, yt)), "Kernel B differs from its plain version"
 
 
 def _raster_case(dev, w, h, seed):
@@ -116,7 +121,7 @@ def test_reduce_kernel_matches_plain(dev):
     assert torch.equal(got, flat_raster.reduce_runs_plain(inst, rank_start, order))
 
 
-@pytest.mark.parametrize("h,w", [(37, 53), (64, 128), (800, 800)])
+@pytest.mark.parametrize("h,w", SSIM_SIZES)
 def test_ssim_backward_kernel_matches_plain(dev, h, w):
     rng = np.random.default_rng(h + 1)
     x = rng.uniform(0, 1, (3, h, w)).astype(np.float32)
@@ -128,7 +133,11 @@ def test_ssim_backward_kernel_matches_plain(dev, h, w):
     assert ssim.BACKWARD.launches == before + 1
     want = ssim.ssim_backward_plain(xt, yt, cot)
     for g, wv in zip(got, want):
-        torch.testing.assert_close(g, wv, rtol=1e-5, atol=1e-6 * float(wv.abs().max()))
+        assert torch.equal(g, wv), "Kernel D differs from its plain version"
+    again = ssim.ssim_backward(xt, yt, cot)
+    assert all(torch.equal(g, a) for g, a in zip(got, again)), "not bitwise repeatable"
+    dx, dy = ssim.ssim_backward(xt, yt, cot, with_dy=False)
+    assert dy is None and torch.equal(dx, want[0])
 
 
 def test_wrappers_refuse_bad_inputs(dev):

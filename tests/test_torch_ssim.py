@@ -1,7 +1,9 @@
 """Port parity: Kernel B's plain version, PSNR and L1 (sgs_tpu_torch.ops.ssim)
 against the JAX jnp oracle `_ssim_jnp` and the fused Pallas forward
 `ssim_kernels.ssim_forward` in interpret mode. SSIM at rtol 1e-5, atol
-1e-6: the bar of tests/test_ssim_fused.py."""
+1e-6: the bar of tests/test_ssim_fused.py. The plain version's mean is
+summed in Kernel B's order; that order is held to a float64 mean and to
+the same order written out by hand."""
 
 import numpy as np
 import pytest
@@ -86,3 +88,57 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     x, y = _pair(4, 16, 16)
     with pytest.raises(ValueError):
         ssim.ssim_forward(torch.from_numpy(x), torch.from_numpy(y))
+
+
+@pytest.mark.parametrize("h,w", [(7, 9), (37, 53), (300, 330)])
+def test_ordered_mean_matches_float64(h, w):
+    """Kernel B's sum order against a float64 mean, rtol 1e-6 (f32 sums of
+    at most a few hundred terms per level)."""
+    rng = np.random.default_rng(h)
+    m = rng.uniform(-0.2, 1.0, (3, h, w)).astype(np.float32)
+    got = float(ssim.ordered_mean(torch.from_numpy(m)))
+    np.testing.assert_allclose(got, m.astype(np.float64).mean(), rtol=1e-6)
+
+
+def _butterfly_np(v):
+    v = list(v)
+    for off in (16, 8, 4, 2, 1):
+        v = [np.float32(v[i] + v[i + off]) for i in range(off)]
+    return v[0]
+
+
+def _block_sum_np(vals):
+    total = np.float32(0.0)
+    for wp in range(ssim.WARPS):
+        total = np.float32(total + _butterfly_np(vals[32 * wp:32 * wp + 32]))
+    return total
+
+
+def test_ordered_mean_order_by_hand():
+    """The order written out in numpy f32, thread by thread, equals
+    `ordered_mean` exactly; 330 tiles make the last block take two
+    partials per thread for some threads."""
+    rng = np.random.default_rng(7)
+    c, h, w = 3, 300, 330
+    m = rng.uniform(-0.2, 1.0, (c, h, w)).astype(np.float32)
+    th, tw, strip = ssim.TILE_H, ssim.TILE_W, ssim.TILE_H // ssim.WARPS
+    partials = []
+    for ch in range(c):
+        for ty in range(-(-h // th)):
+            for tx in range(-(-w // tw)):
+                vals = []
+                for thread in range(ssim.THREADS):
+                    col, r0 = tx * tw + thread % 32, ty * th + (thread // 32) * strip
+                    s = np.float32(0.0)
+                    for row in range(r0, r0 + strip):
+                        s = np.float32(s + (m[ch, row, col] if row < h and col < w else np.float32(0)))
+                    vals.append(s)
+                partials.append(_block_sum_np(vals))
+    lanes = []
+    for thread in range(ssim.THREADS):
+        s = np.float32(0.0)
+        for i in range(thread, len(partials), ssim.THREADS):
+            s = np.float32(s + partials[i])
+        lanes.append(s)
+    want = np.float32(_block_sum_np(lanes) / np.float32(c * h * w))
+    assert float(ssim.ordered_mean(torch.from_numpy(m))) == float(want)

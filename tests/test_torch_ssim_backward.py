@@ -68,3 +68,41 @@ def test_backward_wrapper_refuses_cpu_tensors():
     x = torch.zeros((3, 16, 16))
     with pytest.raises(ValueError):
         ssim.ssim_backward(x, x, torch.tensor(1.0))
+
+
+def test_ssim_function_skips_dy_when_y_needs_no_gradient():
+    """`SSIMFunction` asks for no dy when the second image needs no
+    gradient (the training path: the ground truth); dx is the same with
+    and without dy, and matches `ssim_backward_plain` exactly."""
+    x, y = _pair(4, 37, 53)
+    cot = torch.tensor(0.7)
+    dx, dy = ssim.ssim_backward_plain(torch.from_numpy(x), torch.from_numpy(y), cot, with_dy=False)
+    full = ssim.ssim_backward_plain(torch.from_numpy(x), torch.from_numpy(y), cot)
+    assert dy is None and torch.equal(dx, full[0])
+    calls = []
+    plain = ssim.ssim_backward_plain
+    try:
+        ssim.ssim_backward_plain = lambda *a: calls.append(a[3]) or plain(*a)
+        xt = torch.from_numpy(x).requires_grad_(True)
+        (0.7 * ssim.ssim(xt, torch.from_numpy(y))).backward()
+        xt2 = torch.from_numpy(x).requires_grad_(True)
+        yt2 = torch.from_numpy(y).requires_grad_(True)
+        (0.7 * ssim.ssim(xt2, yt2)).backward()
+    finally:
+        ssim.ssim_backward_plain = plain
+    assert calls == [False, True]
+    assert torch.equal(xt.grad, full[0]) and torch.equal(xt2.grad, full[0])
+    assert torch.equal(yt2.grad, full[1])
+
+
+def test_ssim_ablation_variants_apply():
+    """Each variant of `sgs_tpu_torch.tools.ssim_ablation` finds the text it
+    undoes in the committed SSIM sources and changes what it builds."""
+    from sgs_tpu_torch.ops import build
+    from sgs_tpu_torch.tools import ssim_ablation
+
+    for name, (kernel, _, edits, *_) in ssim_ablation.VARIANTS.items():
+        src = ssim_ablation.variant_source(name)
+        changed = [f for f in edits if (src.parent / f).read_text() != (build.CSRC_DIR / f).read_text()]
+        assert changed == list(edits), name
+        assert src.name == ssim_ablation.SOURCES[kernel]
