@@ -5,7 +5,7 @@
 
 Phases:
   1. device: the card's name and power limit (nvidia-smi) and torch's name;
-  2. build: the four CUDA sources built cold from `sgs_tpu_torch/csrc/`,
+  2. build: the five CUDA sources built cold from `sgs_tpu_torch/csrc/`,
      one nvcc per source, started together;
   3. kernels against their plain PyTorch versions on the card: Kernels A
      (raster forward) and C (raster backward), bit for bit, on a seeded
@@ -17,7 +17,10 @@ Phases:
      of binning's longest-first schedule, which must give the same bits;
      Kernels B and D (SSIM forward and backward), bit for bit, at six
      sizes from one smaller than a tile to 1080x1920, each also twice, D
-     also without dy;
+     also without dy; Kernels E, F and G (the forward-raster experiments)
+     on the random scene binned by rect and packed into rows
+     (`ops/rows.py`), every mode and krows, each twice: E and G's hs and
+     nocp and every F mode bit for bit, mxu within its stated tolerance;
   4. the render slice: the port's render and metrics entry points on the
      trained flagship model (assets/flagship/point_cloud.ply) and the
      8-view test split of data/flagship800, held per view to the JAX
@@ -42,7 +45,15 @@ Phases:
      at the main path's shapes (flagship view 0), Kernel C's walk and
      reduction also timed apart, and A and C's walk also with the tiles
      in raster order (what the longest-first schedule buys);
-  8. a `{"kernels": [...]}` line, the device line, and last the result
+  8. the forward-raster experiments at 1920x1080 with 100,000 Gaussians
+     (`tools/exp_scene.py`): the scene built once and the three CLIs
+     (`python -m sgs_tpu_torch.tools.exp_fwd`, `exp_fwd2` and
+     `exp_transposed`, through their `run`) driven on it in this process,
+     with the launch counts reset before and read after, every
+     non-ablation variant held to Kernel A on the same bins; then E, F and
+     G in every mode and krows against their plain versions on the same
+     rows, and their bounds (`tools/exp_bounds.py`);
+  9. a `{"kernels": [...]}` line, the device line, and last the result
      line `{"ok": true, "device": {...}}`.
 
 Any failed phase raises and the script exits nonzero. It needs the
@@ -70,12 +81,15 @@ from sgs_tpu_torch.data.readers import read_cameras_from_transforms, read_nerf_s
 from sgs_tpu_torch.data.scene import get_nerfpp_norm
 from sgs_tpu_torch.metrics import evaluate, read_image
 from sgs_tpu_torch.models.gaussians import PARAM_FIELDS, DensifyStats, GaussianModel, default_capacity
-from sgs_tpu_torch.ops import build, flat_raster, ssim as ssim_ops
+from sgs_tpu_torch.ops import build, exp_forward, flat_raster, ssim as ssim_ops
 from sgs_tpu_torch.ops.ssim import l1_loss
 from sgs_tpu_torch.render.cli import main as render_main
 from sgs_tpu_torch.render.cli import render_sets
 from sgs_tpu_torch.render.pipeline import project_and_shade, render
 from sgs_tpu_torch.render.tiled import bin_gaussians, kernel_args
+from sgs_tpu_torch.tools import exp_bounds, exp_fwd, exp_fwd2, exp_scene, exp_transposed
+# the bounds' peak rates (H100 SXM, NVIDIA's data sheet) are defined there
+from sgs_tpu_torch.tools.exp_bounds import bound_ms
 from sgs_tpu_torch.tools.ssim_times import time_ms
 from sgs_tpu_torch.train.__main__ import main as train_main
 from sgs_tpu_torch.train.checkpoint import save_checkpoint
@@ -92,7 +106,9 @@ SMOKE_DIR = ROOT / "build" / "smoke" / "flagship"
 TRAIN_DIR = ROOT / "build" / "smoke" / "train_flagship"
 SCRATCH_DIR = ROOT / "build" / "smoke" / "train_scratch"
 METHOD = "ours_15000"
-KERNELS = (flat_raster.KERNEL, ssim_ops.KERNEL, flat_raster.BACKWARD, ssim_ops.BACKWARD)
+KERNELS = (flat_raster.KERNEL, ssim_ops.KERNEL, flat_raster.BACKWARD, ssim_ops.BACKWARD,
+           exp_forward.KERNEL)
+EXP_COUNTS = (exp_forward.E, exp_forward.F, exp_forward.G)
 # the full-width training run: 10 steps to the end of a 30k schedule
 TRAIN_FROM, TRAIN_TO = 29_990, 30_000
 SCRATCH_ITERS = 100
@@ -100,11 +116,6 @@ SCRATCH_ITERS = 100
 # background, full resolution, SH degree 3.
 WHITE_BACKGROUND = False
 SH_DEGREE = 3
-
-# Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32
-# operations/s outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 
 PSNR_BAR, SSIM_BAR = 0.02, 5e-4
 # Kernels A-D equal their plain versions bit for bit (the same arithmetic
@@ -125,12 +136,6 @@ def time_cuda(fn, reps: int) -> float:
     """Mean ms of `fn` over `reps` calls by CUDA events, host time included
     (a stage of the host-bound training step)."""
     return time_ms(fn, reps, hide_host=False)
-
-
-def bound_ms(nbytes: float, ops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_device() -> str:
@@ -158,13 +163,19 @@ def phase_build() -> None:
 
 
 def reset_counts() -> None:
-    for k in KERNELS:
+    for k in KERNELS + EXP_COUNTS:
         k.launches = 0
 
 
 def read_counts() -> dict:
     return {"A": flat_raster.KERNEL.launches, "B": ssim_ops.KERNEL.launches,
-            "C": flat_raster.BACKWARD.launches, "D": ssim_ops.BACKWARD.launches}
+            "C": flat_raster.BACKWARD.launches, "D": ssim_ops.BACKWARD.launches,
+            **{c.name: c.launches for c in EXP_COUNTS}}
+
+
+def only(**counts) -> dict:
+    """The launch counts of a run that launches only the named kernels."""
+    return {k: counts.get(k, 0) for k in "ABCDEFG"}
 
 
 def random_raster_scene(dev, n=2000, width=250, height=190, seed=0):
@@ -310,6 +321,80 @@ def compare_ssim_backward(x, y, cot) -> float:
     return 0.0
 
 
+def check_rows(name, got, again, want, mode, row_tile, near) -> float:
+    """One kernel's per-row state against its repeat and its plain
+    version: equal bit for bit, or for mxu within MXU_ATOL with no
+    last_contrib difference off the pixels at a cut. Returns max |err|."""
+    if not torch.equal(got, again):
+        raise AssertionError(f"Kernel {name} is not bitwise repeatable")
+    if mode != "mxu":
+        if not torch.equal(got, want):
+            raise AssertionError(f"Kernel {name} differs from its plain version at "
+                                 f"{int((got != want).sum())} elements")
+        return 0.0
+    err = exp_forward.rows_error(got, want, row_tile, near)
+    if not err["finite"] or err["values"] > exp_forward.MXU_ATOL or err["last_contrib_flips"]:
+        raise AssertionError(f"Kernel {name} differs from its plain version: {err}")
+    return err["values"]
+
+
+def compare_experiments(pk: dict, krows_list, near=None) -> dict:
+    """Kernels E, F and G in every mode, each twice, against their plain
+    versions on the rows `pk` (`near`: its pixels at a cut, computed when
+    not given). Returns the max |err| of each."""
+    crs, nch, sched, tx = pk["chunk_row_start"], pk["n_chunks"], pk["schedule"], pk["tiles_x"]
+    fm, im, rt = pk["packed_fm"], pk["packed"], pk["row_tile"]
+    if near is None:
+        near = exp_forward.near_cut(fm, crs, nch, tx)
+    errs = {"E": 0.0, "F": 0.0, "G": 0.0}
+    for mode in exp_forward.SCANS:
+        want = exp_forward.forward_rows_plain(fm, crs, nch, sched, tx, mode)
+        for kr in krows_list:
+            run = lambda: exp_forward.forward_rows(fm, crs, nch, sched, tx, mode, kr)
+            errs["E"] = max(errs["E"], check_rows(f"E {mode} krows {kr}", run(), run(), want, mode, rt, near))
+        if mode == "nocp":
+            continue
+        want = exp_forward.transposed_rows_plain(im, crs, nch, sched, tx, mode).transpose(1, 2)
+        for kr in krows_list:
+            run = lambda: exp_forward.transposed_rows(im, crs, nch, sched, tx, mode, kr).transpose(1, 2)
+            errs["G"] = max(errs["G"], check_rows(f"G {mode} krows {kr}", run(), run(), want, mode, rt, near))
+    for mode in exp_forward.ABLATIONS:
+        for oc in (8, 1):
+            want = exp_forward.ablation_rows_plain(fm, crs, nch, sched, tx, mode, oc)
+            for kr in krows_list:
+                run = lambda: exp_forward.ablation_rows(fm, crs, nch, sched, tx, mode, kr, oc)
+                got, again = run(), run()
+                if mode == "empty":  # only row 0 is defined
+                    got, again, want = got[:1], again[:1], want[:1]
+                check_rows(f"F {mode} krows {kr} out_cols {oc}", got, again, want, mode, rt, near)
+    return errs
+
+
+def phase_experiments_small(dev) -> dict:
+    """Phase 3 for Kernels E, F and G: the random scene (an empty and a
+    saturated tile) packed into rows; every mode and krows against the
+    plain versions; the plain versions' ms at this size."""
+    width, height = 250, 190
+    pk = exp_scene.pack(random_raster_scene(dev, width=width, height=height), width, height)
+    sat_tile = 6 * pk["tiles_x"] + 8
+    if int(pk["n_chunks"][sat_tile]) < 2 or int((pk["n_chunks"] == 0).sum()) == 0:
+        raise AssertionError("the packed scene lacks its saturated or its empty tile")
+    errs = compare_experiments(pk, exp_forward.KROWS)
+    crs, nch, sched, tx = pk["chunk_row_start"], pk["n_chunks"], pk["schedule"], pk["tiles_x"]
+    plain = {
+        "E": time_cuda(lambda: exp_forward.forward_rows_plain(pk["packed_fm"], crs, nch, sched, tx), 3),
+        "F": time_cuda(lambda: exp_forward.ablation_rows_plain(pk["packed_fm"], crs, nch, sched, tx), 3),
+        "G": time_cuda(lambda: exp_forward.transposed_rows_plain(pk["packed"], crs, nch, sched, tx), 3),
+    }
+    say(f"[3 kernels] E, F, G on rows {width}x{height}: {pk['rows_used']} rows, "
+        f"{int((nch == 0).sum())} empty tiles, the saturated tile {int(nch[sat_tile])} rows: "
+        f"E hs/nocp, G hs and F empty/outonly/alpha (krows 8 and 32, out_cols 8 and 1) equal to "
+        f"their plain versions bit for bit and repeatable; mxu max |err| E {errs['E']:.2e}, "
+        f"G {errs['G']:.2e} (tolerance {exp_forward.MXU_ATOL}); plain ms at this size: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in plain.items()))
+    return errs
+
+
 def phase_kernels(dev) -> dict:
     width, height = 250, 190
     sc = random_raster_scene(dev, width=width, height=height)
@@ -353,7 +438,7 @@ def phase_kernels(dev) -> dict:
         errs_d.append(compare_ssim_backward(x, y, torch.tensor(0.7, device=dev)))
         say(f"[3 kernels] B ssim forward and D ssim backward {h}x{w}: equal to their plain "
             f"versions bit for bit, bitwise repeatable; D without dy gives the same dx")
-    return {"A": err_a, "B": max(errs_b), "C": err_c, "D": max(errs_d)}
+    return {"A": err_a, "B": max(errs_b), "C": err_c, "D": max(errs_d), **phase_experiments_small(dev)}
 
 
 def phase_slice(dev) -> dict:
@@ -391,7 +476,7 @@ def phase_slice(dev) -> dict:
     if failures or abs(dp) > PSNR_BAR or abs(ds) > SSIM_BAR:
         raise AssertionError(f"views off the JAX numbers: {failures}, mean dPSNR {dp}, dSSIM {ds}")
     n_views = len(names)
-    if launches != {"A": n_views, "B": n_views, "C": 0, "D": 0}:
+    if launches != only(A=n_views, B=n_views):
         raise AssertionError(f"render path launches {launches}, expected A and B {n_views}")
     return {"launches": launches, "worst": worst, "views": n_views}
 
@@ -469,7 +554,7 @@ def phase_train_flagship(dev, model) -> dict:
     n_alive = model.num_alive
     snap = load_gaussian_ply(str(TRAIN_DIR / "point_cloud" / f"iteration_{TRAIN_TO}" / "point_cloud.ply"),
                              SH_DEGREE)
-    if launches != {k: steps for k in "ABCD"}:
+    if launches != only(A=steps, B=steps, C=steps, D=steps):
         raise AssertionError(f"training launches {launches}, expected {steps} of each kernel")
     if snap["xyz"].shape[0] != n_alive or not np.isfinite(snap["xyz"]).all():
         raise AssertionError(f"saved snapshot has {snap['xyz'].shape[0]} Gaussians, expected {n_alive}")
@@ -771,6 +856,88 @@ def phase_timing(dev, errs: dict, launches: dict, views, step: dict) -> list:
     ]
 
 
+# Non-ablation variants against Kernel A at 1080p: the bar of the
+# package's images (3e-5) on colours and t_final and equal last_contrib,
+# off the pixels at a cut (`exp_forward.near_cut`), which must stay under
+# 1% of the compared pixels.
+EXP_ATOL, NEAR_CUT_SHARE = 3e-5, 0.01
+
+
+def phase_experiments(dev, errs: dict) -> list:
+    """The forward-raster experiments at 1920x1080 with 100,000 Gaussians:
+    the scene built once and the three CLIs run on it, with the launch
+    counts reset before and read after, every variant held to Kernel A;
+    then E, F and G in every mode and krows against their plain versions
+    on the same rows, and each kernel's bound (`tools/exp_bounds.py`)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    sc = exp_scene.build_scene(device=dev)
+    exp_scene.describe(sc, 0)
+    ref, near = exp_scene.references(sc)
+    res_e = exp_fwd.run(sc, dev, ref, near)
+    res_f = exp_fwd2.run(sc, dev)
+    res_g = exp_transposed.run(sc, dev, ref, near)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    wall = time.perf_counter() - t0
+    if min(launches[k] for k in "EFG") == 0 or launches["B"] or launches["C"] or launches["D"]:
+        raise AssertionError(f"experiment launches {launches}")
+    n_pix = int(((sc["n_chunks"] > 0)[:, None] & ~torch.isnan(ref[1])).sum())
+    for r in res_e + res_g:
+        err = r.get("err")
+        if err is None:
+            continue
+        if (err["color"] > EXP_ATOL or err["t_final"] > EXP_ATOL or err["last_contrib"] != 0
+                or err["near_cut_pixels"] > NEAR_CUT_SHARE * n_pix):
+            raise AssertionError(f"Kernel {r['kernel']} {r['mode']} krows {r['krows']} against "
+                                 f"Kernel A: {err} ({n_pix} pixels compared)")
+    say(f"[8 experiments] 1080p scene and CLIs: launches {launches}, {wall:.2f} s; every variant "
+        f"within {EXP_ATOL} of Kernel A (last_contrib equal) on {n_pix} pixels of non-empty tiles, "
+        f"{res_e[1]['err']['near_cut_pixels']} pixels at a cut left out")
+
+    # the same rows: kernels against plain versions, and the bounds
+    e = compare_experiments(sc, exp_forward.KROWS, near)
+    for k in "EFG":
+        errs[k] = max(errs[k], e[k])
+    crs, nch, sched, tx = sc["chunk_row_start"], sc["n_chunks"], sc["schedule"], sc["tiles_x"]
+    fm, im = sc["packed_fm"], sc["packed"]
+    t1 = time.perf_counter()
+    _, info = exp_forward.scan_plain(fm, crs, nch, tx, "hs")
+    torch.cuda.synchronize()
+    plain = {"E": (time.perf_counter() - t1) * 1e3}
+    plain["F"] = time_cuda(lambda: exp_forward.ablation_rows_plain(fm, crs, nch, sched, tx), 1)
+    plain["G"] = time_cuda(lambda: exp_forward.transposed_rows_plain(im, crs, nch, sched, tx), 1)
+    # the scans need only the rows the hs scan walks; F's alpha walks every row
+    walked, every = exp_bounds.scene_counts(sc, info["walked"]), exp_bounds.scene_counts(sc)
+    where = {"E": ("exp_forward E (hs, krows 8)", "scripts/exp_fwd.py:210", walked, "hs"),
+             "E mxu": ("exp_forward E (mxu)", "scripts/exp_fwd.py:210", walked, "mxu"),
+             "F": ("exp_forward F (alpha, krows 8, out_cols 8)", "scripts/exp_fwd2.py:84", every, "alpha"),
+             "G": ("exp_forward G (hs, krows 8)", "scripts/exp_transposed.py:147", walked, "hs")}
+    bounds = {k: exp_bounds.forward(v[1], v[0], v[2], v[3]) for k, v in where.items()}
+    # Kernel A on the same bins, for the comparison: its bound as in phase 7
+    ka = sc["kernel_a"]
+    _, _, n_contrib = flat_raster.rasterize_tiles(*ka)
+    a_bound = bound_ms(4 * ka[2].shape[0] + 4 * flat_raster.REC_WIDTH * ka[4].shape[0]
+                       + 12 * sc["num_tiles"] + 20 * ka[5] * ka[6],
+                       flat_raster.OPS_PER_PAIR * float(n_contrib.sum()))
+    say(f"[8 experiments] Kernel A on the 1080p bins: {exp_scene.fmt_ms(res_e[0]['ms'])}, bound {a_bound[0]:.4f} ms "
+        f"({a_bound[1]}), {float(n_contrib.sum()):.0f} instance-pixel pairs below n_contrib")
+    ms = {"E": res_e[1]["ms"], "F": next(x["ms"] for x in res_f if x.get("mode") == "alpha"),
+          "G": res_g[1]["ms"]}
+    say(f"[8 experiments] kernels against plain versions on the 1080p rows (krows "
+        f"{' and '.join(map(str, exp_forward.KROWS))}, every mode): E, G hs/nocp and F bit for bit, "
+        f"mxu max |err| E {e['E']:.2e} G {e['G']:.2e}; {walked['read']} of {sc['rows_used']} rows "
+        f"walked (hs), pairs walked {walked['P']}, all {every['P']}; bounds (ms) "
+        + ", ".join(f"{k} {b['bound_ms']:.4f} ({b['bound_by']}, {b['bytes']} B, {b['ops']} f32 ops)"
+                    for k, b in bounds.items())
+        + "; plain ms " + ", ".join(f"{k} {v:.1f}" for k, v in plain.items())
+        + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return [{"name": where[k][0], "route": "cuda", "source": "sgs_tpu_torch/csrc/exp_forward.cu",
+             "replaces": where[k][1], "launches": launches[k], "max_abs_err": errs[k], "ms": ms[k],
+             "plain_ms": plain[k], "bound_ms": bounds[k]["bound_ms"], "bound_by": bounds[k]["bound_by"],
+             "library_ms": None} for k in "EFG"]
+
+
 def main(device: str = "cuda") -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -787,7 +954,8 @@ def main(device: str = "cuda") -> int:
     errs["D"] = max(errs["D"], step["D"])
     phase_scratch(dev)
     kernels = phase_timing(dev, errs, train["launches"], views, step)
-    say(f"[8 done] chip_smoke wall {time.perf_counter() - t_start:.2f} s")
+    kernels += phase_experiments(dev, errs)
+    say(f"[9 done] chip_smoke wall {time.perf_counter() - t_start:.2f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

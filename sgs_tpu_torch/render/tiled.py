@@ -19,8 +19,9 @@ from run to run.
 
 PyTorch runs eagerly, so every array is sized from the real counts: there
 are no static buckets and nothing overflows. The TPU-only machinery of the
-JAX file (aligned chunk packing, row maps, payload lanes, barriers) has no
-counterpart here.
+JAX file (aligned chunk packing, payload lanes, barriers) has no
+counterpart here; the chunk-padded rows and row maps that the
+forward-raster experiments read are in `ops/rows.py`.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Kernels A, B, C and D on the card against their plain PyTorch versions.
+"""Kernels A-G on the card against their plain PyTorch versions.
 
 CUDA kernels have no CPU mode, so these tests need an NVIDIA GPU with nvcc
 and skip without one. On the card (no JAX there, so no conftest):
@@ -146,3 +146,62 @@ def test_wrappers_refuse_bad_inputs(dev):
         ssim.ssim_forward(x, x)
     with pytest.raises(ValueError):
         ssim.ssim_forward(x.float().transpose(1, 2), x.float())
+
+
+
+def _exp_scene(dev):
+    """The experiments' scene, small: 3,000 Gaussians at 128x96 (empty
+    corner tiles, saturated centre tiles), packed into rows of 64."""
+    from sgs_tpu_torch.tools import exp_scene
+
+    sc = exp_scene.build_scene(128, 96, 3000, 0, dev)
+    assert int((sc["n_chunks"] == 0).sum()) > 0, "the scene should have an empty tile"
+    return sc
+
+
+@pytest.mark.parametrize("krows", [8, 32])
+@pytest.mark.parametrize("kernel,mode", [("E", "hs"), ("E", "nocp"), ("E", "mxu"),
+                                         ("G", "hs"), ("G", "mxu")])
+def test_exp_forward_kernels_match_plain(dev, kernel, mode, krows):
+    from sgs_tpu_torch.ops import exp_forward as ef
+
+    sc = _exp_scene(dev)
+    crs, nch, sched, tx = sc["chunk_row_start"], sc["n_chunks"], sc["schedule"], sc["tiles_x"]
+    if kernel == "E":
+        count, run = ef.E, lambda: ef.forward_rows(sc["packed_fm"], crs, nch, sched, tx, mode, krows)
+        want = ef.forward_rows_plain(sc["packed_fm"], crs, nch, sched, tx, mode)
+    else:
+        count, run = ef.G, lambda: ef.transposed_rows(sc["packed"], crs, nch, sched, tx, mode, krows)
+        want = ef.transposed_rows_plain(sc["packed"], crs, nch, sched, tx, mode)
+    before = count.launches
+    got = run()
+    assert count.launches == before + 1
+    assert torch.equal(got, run()), "not bitwise repeatable"
+    if mode != "nocp":
+        t_final = want[:, 4, :] if kernel == "G" else want[:, :, 4]
+        assert float(t_final.min()) < 1e-3, "some pixel should saturate"
+    if mode != "mxu":
+        assert torch.equal(got, want), f"Kernel {kernel} {mode} differs from its plain version"
+        return
+    if kernel == "G":
+        got, want = got.transpose(1, 2), want.transpose(1, 2)
+    near = ef.near_cut(sc["packed_fm"], crs, nch, tx)
+    err = ef.rows_error(got, want, sc["row_tile"], near)
+    assert err["finite"] and err["values"] <= ef.MXU_ATOL and err["last_contrib_flips"] == 0, err
+
+
+@pytest.mark.parametrize("krows,out_cols", [(8, 8), (8, 1), (32, 1)])
+@pytest.mark.parametrize("mode", ["empty", "outonly", "alpha"])
+def test_exp_ablation_kernel_matches_plain(dev, mode, krows, out_cols):
+    from sgs_tpu_torch.ops import exp_forward as ef
+
+    sc = _exp_scene(dev)
+    args = (sc["packed_fm"], sc["chunk_row_start"], sc["n_chunks"], sc["schedule"], sc["tiles_x"])
+    before = ef.F.launches
+    got = ef.ablation_rows(*args, mode, krows, out_cols)
+    assert ef.F.launches == before + 1
+    want = ef.ablation_rows_plain(*args, mode, out_cols)
+    if mode == "empty":
+        got, want = got[:1], want[:1]
+    assert torch.equal(got, want), f"Kernel F {mode} differs from its plain version"
+    assert torch.equal(ef.exp_ablation(*args, mode, krows, out_cols), want[0])

@@ -1,22 +1,67 @@
 """`sgs_tpu_torch.tools.exp_bounds` lists a bound for every `pl.pallas_call`
-of the six experiment scripts, at the line where each script makes it."""
+of the six experiment scripts, at the line where each script makes it,
+and counts the forward kernels' slots, pairs and per-row state."""
 
 from pathlib import Path
 
-from sgs_tpu_torch.tools import exp_bounds
+import pytest
+import torch
 
+from sgs_tpu_torch.ops import exp_forward
+from sgs_tpu_torch.tools import exp_bounds, exp_scene
+
+torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
+SMALL = (96, 64, 800)
 
 
-def test_every_experiment_call_has_a_bound():
-    rows = exp_bounds.rows()
-    for row in rows:
+@pytest.fixture(scope="module")
+def bound_rows():
+    return exp_bounds.rows(*SMALL)
+
+
+def test_every_experiment_call_has_a_bound(bound_rows):
+    for row in bound_rows:
         path, line = row["script"].split(":")
         text = (ROOT / path).read_text().splitlines()
         assert "pallas_call" in text[int(line) - 1], row["script"]
-        assert row["bound_ms"]
-    calls = {r["script"] for r in rows}
+        assert row["bound_by"] in ("bytes", "operations")
+        # `empty` moves nothing; every other kernel has a bound
+        assert row["bound_ms"] > 0 or "empty" in row["kernel"], row
+    calls = {r["script"] for r in bound_rows}
     for script in ROOT.glob("scripts/exp_*.py"):
         for i, ln in enumerate(script.read_text().splitlines(), 1):
             if "pl.pallas_call(" in ln:
                 assert f"scripts/{script.name}:{i}" in calls, (script.name, i)
+
+
+def test_forward_rows_count_slots_pairs_and_state(bound_rows):
+    """Each forward variant reads only its mode's fields of the used rows
+    (9 for the scans, 6 for alpha) and the tile tables, and writes the
+    per-row state (8 columns, or out_cols); P counts 256 pairs for every
+    instance; the triangular contraction counts 65 TF32 flops per pair."""
+    sc = exp_scene.build_scene(*SMALL, seed=0, device="cpu")
+    slots, p = sc["rows_used"] * 64, 256 * sc["instances"]
+    state = sc["max_rows"] * 256 * 4
+    tables = 12 * sc["num_tiles"]
+    fwd = {r["kernel"]: r for r in bound_rows if "P" in r}
+    assert len(fwd) == 9 and all(r["slots_read"] == slots and r["P"] == p for r in fwd.values())
+    assert fwd["forward variant (Kernel E), hs, out_cols 8"]["bytes"] == slots * 9 * 4 + tables + 8 * state
+    assert fwd["transposed forward (Kernel G), hs, out_cols 8"]["bytes"] == slots * 9 * 4 + tables + 8 * state
+    assert fwd["structural ablation (Kernel F), alpha, out_cols 1"]["bytes"] == slots * 6 * 4 + tables + state
+    assert fwd["structural ablation (Kernel F), outonly, out_cols 8"]["bytes"] == tables + 8 * state
+    assert fwd["structural ablation (Kernel F), empty, out_cols 8"]["bytes"] == 0
+    mxu = fwd["transposed forward (Kernel G), mxu, out_cols 8"]
+    assert mxu["ops"] == exp_forward.OPS_PER_PAIR["mxu"] * p
+    assert mxu["bound_ms"] >= (42 * p / exp_bounds.F32_OPS_PER_S + 65 * p / exp_bounds.TF32_OPS_PER_S) * 1e3 * (1 - 1e-12)
+
+
+def test_scene_counts_walked_rows():
+    """Counting only the rows walked reads fewer rows and pairs."""
+    sc = exp_scene.build_scene(*SMALL, seed=0, device="cpu")
+    walked = torch.zeros(sc["max_rows"], dtype=torch.bool)
+    walked[: sc["rows_used"] // 2] = True
+    c_all, c_half = exp_bounds.scene_counts(sc), exp_bounds.scene_counts(sc, walked)
+    assert c_half["read"] == sc["rows_used"] // 2 and c_all["read"] == sc["rows_used"]
+    assert c_half["P"] == exp_forward.pairs(sc["windows"], sc["n_gaussians"], walked) < c_all["P"]
+    assert c_all["rows"] == c_half["rows"] == sc["max_rows"]
