@@ -5,7 +5,7 @@
 
 Phases:
   1. device: the card's name and power limit (nvidia-smi) and torch's name;
-  2. build: the five CUDA sources built cold from `sgs_tpu_torch/csrc/`,
+  2. build: the six CUDA sources built cold from `sgs_tpu_torch/csrc/`,
      one nvcc per source, started together;
   3. kernels against their plain PyTorch versions on the card: Kernels A
      (raster forward) and C (raster backward), bit for bit, on a seeded
@@ -21,6 +21,12 @@ Phases:
      on the random scene binned by rect and packed into rows
      (`ops/rows.py`), every mode and krows, each twice: E and G's hs and
      nocp and every F mode bit for bit, mxu within its stated tolerance;
+     Kernels H, I and J (the gather experiments) at 32, 37 (not a whole
+     number of 8-row grid steps) and 1,100 rows (J over 9 blocks, the
+     last ragged), windows starting at the table's end, and K from a
+     row-major and a field-major table at 16 and 8 lanes, rows a whole
+     number of 256-row tiles, a ragged last tile and rows not a multiple
+     of 4, each twice, bit for bit;
   4. the render slice: the port's render and metrics entry points on the
      trained flagship model (assets/flagship/point_cloud.ply) and the
      8-view test split of data/flagship800, held per view to the JAX
@@ -52,8 +58,17 @@ Phases:
      with the launch counts reset before and read after, every
      non-ablation variant held to Kernel A on the same bins; then E, F and
      G in every mode and krows against their plain versions on the same
-     rows, and their bounds (`tools/exp_bounds.py`);
-  9. a `{"kernels": [...]}` line, the device line, and last the result
+     rows, and their bounds (`tools/exp_bounds.py`); a failed mxu check
+     names the row, tile and pixel of its largest error, whether the
+     tile's skip votes differ and whether the pixel is at a cut;
+  9. the gather experiments at the scripts' full sizes: the three CLIs
+     (`python -m sgs_tpu_torch.tools.exp_vmem_gather`, `exp_dma_gather`
+     and `exp_gather_layout`, through their `run`) in this process, with
+     the launch counts reset before and read after (H, I, J and K must
+     launch, A-G not); then H-K against their plain versions on the same
+     inputs, twice, bit for bit, the plain versions' and the library
+     calls' ms, and the bounds (`tools/exp_bounds.py`);
+ 10. a `{"kernels": [...]}` line, the device line, and last the result
      line `{"ok": true, "device": {...}}`.
 
 Any failed phase raises and the script exits nonzero. It needs the
@@ -81,13 +96,14 @@ from sgs_tpu_torch.data.readers import read_cameras_from_transforms, read_nerf_s
 from sgs_tpu_torch.data.scene import get_nerfpp_norm
 from sgs_tpu_torch.metrics import evaluate, read_image
 from sgs_tpu_torch.models.gaussians import PARAM_FIELDS, DensifyStats, GaussianModel, default_capacity
-from sgs_tpu_torch.ops import build, exp_forward, flat_raster, ssim as ssim_ops
+from sgs_tpu_torch.ops import build, exp_forward, flat_raster, gather, ssim as ssim_ops
 from sgs_tpu_torch.ops.ssim import l1_loss
 from sgs_tpu_torch.render.cli import main as render_main
 from sgs_tpu_torch.render.cli import render_sets
 from sgs_tpu_torch.render.pipeline import project_and_shade, render
 from sgs_tpu_torch.render.tiled import bin_gaussians, kernel_args
-from sgs_tpu_torch.tools import exp_bounds, exp_fwd, exp_fwd2, exp_scene, exp_transposed
+from sgs_tpu_torch.tools import (exp_bounds, exp_dma_gather, exp_fwd, exp_fwd2, exp_gather_layout,
+                                 exp_scene, exp_transposed, exp_vmem_gather, gather_inputs)
 # the bounds' peak rates (H100 SXM, NVIDIA's data sheet) are defined there
 from sgs_tpu_torch.tools.exp_bounds import bound_ms
 from sgs_tpu_torch.tools.ssim_times import time_ms
@@ -107,8 +123,8 @@ TRAIN_DIR = ROOT / "build" / "smoke" / "train_flagship"
 SCRATCH_DIR = ROOT / "build" / "smoke" / "train_scratch"
 METHOD = "ours_15000"
 KERNELS = (flat_raster.KERNEL, ssim_ops.KERNEL, flat_raster.BACKWARD, ssim_ops.BACKWARD,
-           exp_forward.KERNEL)
-EXP_COUNTS = (exp_forward.E, exp_forward.F, exp_forward.G)
+           exp_forward.KERNEL, gather.KERNEL)
+EXP_COUNTS = (exp_forward.E, exp_forward.F, exp_forward.G, gather.H, gather.I, gather.J, gather.K)
 # the full-width training run: 10 steps to the end of a 30k schedule
 TRAIN_FROM, TRAIN_TO = 29_990, 30_000
 SCRATCH_ITERS = 100
@@ -175,7 +191,7 @@ def read_counts() -> dict:
 
 def only(**counts) -> dict:
     """The launch counts of a run that launches only the named kernels."""
-    return {k: counts.get(k, 0) for k in "ABCDEFG"}
+    return {k: counts.get(k, 0) for k in "ABCDEFGHIJK"}
 
 
 def random_raster_scene(dev, n=2000, width=250, height=190, seed=0):
@@ -321,10 +337,12 @@ def compare_ssim_backward(x, y, cot) -> float:
     return 0.0
 
 
-def check_rows(name, got, again, want, mode, row_tile, near) -> float:
+def check_rows(name, got, again, want, mode, pk, near) -> float:
     """One kernel's per-row state against its repeat and its plain
-    version: equal bit for bit, or for mxu within MXU_ATOL with no
-    last_contrib difference off the pixels at a cut. Returns max |err|."""
+    version on the rows `pk`: equal bit for bit, or for mxu within
+    MXU_ATOL with no last_contrib difference off the pixels at a cut; a
+    failed mxu check names the site of its largest error
+    (`exp_forward.error_site`). Returns max |err|."""
     if not torch.equal(got, again):
         raise AssertionError(f"Kernel {name} is not bitwise repeatable")
     if mode != "mxu":
@@ -332,9 +350,11 @@ def check_rows(name, got, again, want, mode, row_tile, near) -> float:
             raise AssertionError(f"Kernel {name} differs from its plain version at "
                                  f"{int((got != want).sum())} elements")
         return 0.0
-    err = exp_forward.rows_error(got, want, row_tile, near)
+    err = exp_forward.rows_error(got, want, pk["row_tile"], near)
     if not err["finite"] or err["values"] > exp_forward.MXU_ATOL or err["last_contrib_flips"]:
-        raise AssertionError(f"Kernel {name} differs from its plain version: {err}")
+        site = exp_forward.error_site(got, want, pk["row_tile"], pk["chunk_row_start"], near)
+        raise AssertionError(f"Kernel {name} differs from its plain version: {err}; "
+                             f"largest error off the pixels at a cut: {site}")
     return err["values"]
 
 
@@ -343,7 +363,7 @@ def compare_experiments(pk: dict, krows_list, near=None) -> dict:
     versions on the rows `pk` (`near`: its pixels at a cut, computed when
     not given). Returns the max |err| of each."""
     crs, nch, sched, tx = pk["chunk_row_start"], pk["n_chunks"], pk["schedule"], pk["tiles_x"]
-    fm, im, rt = pk["packed_fm"], pk["packed"], pk["row_tile"]
+    fm, im = pk["packed_fm"], pk["packed"]
     if near is None:
         near = exp_forward.near_cut(fm, crs, nch, tx)
     errs = {"E": 0.0, "F": 0.0, "G": 0.0}
@@ -351,13 +371,13 @@ def compare_experiments(pk: dict, krows_list, near=None) -> dict:
         want = exp_forward.forward_rows_plain(fm, crs, nch, sched, tx, mode)
         for kr in krows_list:
             run = lambda: exp_forward.forward_rows(fm, crs, nch, sched, tx, mode, kr)
-            errs["E"] = max(errs["E"], check_rows(f"E {mode} krows {kr}", run(), run(), want, mode, rt, near))
+            errs["E"] = max(errs["E"], check_rows(f"E {mode} krows {kr}", run(), run(), want, mode, pk, near))
         if mode == "nocp":
             continue
         want = exp_forward.transposed_rows_plain(im, crs, nch, sched, tx, mode).transpose(1, 2)
         for kr in krows_list:
             run = lambda: exp_forward.transposed_rows(im, crs, nch, sched, tx, mode, kr).transpose(1, 2)
-            errs["G"] = max(errs["G"], check_rows(f"G {mode} krows {kr}", run(), run(), want, mode, rt, near))
+            errs["G"] = max(errs["G"], check_rows(f"G {mode} krows {kr}", run(), run(), want, mode, pk, near))
     for mode in exp_forward.ABLATIONS:
         for oc in (8, 1):
             want = exp_forward.ablation_rows_plain(fm, crs, nch, sched, tx, mode, oc)
@@ -366,7 +386,7 @@ def compare_experiments(pk: dict, krows_list, near=None) -> dict:
                 got, again = run(), run()
                 if mode == "empty":  # only row 0 is defined
                     got, again, want = got[:1], again[:1], want[:1]
-                check_rows(f"F {mode} krows {kr} out_cols {oc}", got, again, want, mode, rt, near)
+                check_rows(f"F {mode} krows {kr} out_cols {oc}", got, again, want, mode, pk, near)
     return errs
 
 
@@ -393,6 +413,50 @@ def phase_experiments_small(dev) -> dict:
         f"G {errs['G']:.2e} (tolerance {exp_forward.MXU_ATOL}); plain ms at this size: "
         + ", ".join(f"{k} {v:.3f}" for k, v in plain.items()))
     return errs
+
+
+def check_equal(name: str, run, want) -> None:
+    """A kernel twice against its plain version's output, bit for bit."""
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"Kernel {name} is not bitwise repeatable")
+    if not torch.equal(got, want):
+        raise AssertionError(f"Kernel {name} differs from its plain version at {int((got != want).sum())} "
+                             f"elements, max |err| {float((got - want).abs().max())}")
+
+
+def gather_cases(table, ids, attr, starts, packed) -> list:
+    """(name, kernel call, plain call) of Kernels H, I and J on one set of
+    the scripts' inputs."""
+    return [("H", lambda: gather.vmem_gather_steps(table, ids),
+             lambda: gather.vmem_gather_steps_plain(table, ids)),
+            ("I", lambda: gather.packed_sum_steps(packed), lambda: gather.packed_sum_steps_plain(packed)),
+            ("J", lambda: gather.dma_gather(attr, starts), lambda: gather.dma_gather_plain(attr, starts))]
+
+
+def phase_gather_small(dev) -> dict:
+    """Phase 3 for Kernels H-K: H, I and J at 32, 37 and 1,100 rows with
+    windows starting at m, K from both layouts at 16 and 8 lanes, each
+    twice, bit for bit."""
+    for rows in (32, 37, 1100):
+        m = 50 * rows
+        table, ids = gather_inputs.vmem_inputs(1000, rows, rows, dev)
+        attr, starts = gather_inputs.dma_inputs(m, rows, rows, dev)
+        at_m = int((starts[: rows // gather.KROWS * gather.KROWS] == m).sum())
+        if at_m == 0:
+            raise AssertionError(f"no window in the grid starts at m ({rows} rows)")
+        for name, run, plain in gather_cases(table, ids, attr, starts, gather_inputs.pack(attr, starts, m)):
+            check_equal(f"{name} ({rows} rows)", run, plain())
+        say(f"[3 kernels] H, I, J gather experiments at {rows} rows ({at_m} windows at m): equal to "
+            f"their plain versions bit for bit and repeatable")
+    for rows, rec in ((16384, 16), (16388, 8), (1001, 16), (1002, 8)):
+        x = torch.as_tensor(np.random.default_rng(rows).normal(size=(rows, rec)).astype(np.float32), device=dev)
+        for src in (x, gather.field_major(x)):
+            check_equal(f"K {gather.layout(src)} ({rows}, {rec})", lambda: gather.layout_identity(src), x)
+    say("[3 kernels] K identity from row-major and field-major tables, (16384, 16), (16388, 8), "
+        "(1001, 16), (1002, 8): equal to the table bit for bit and repeatable")
+    return {k: 0.0 for k in "HIJK"}
 
 
 def phase_kernels(dev) -> dict:
@@ -438,7 +502,8 @@ def phase_kernels(dev) -> dict:
         errs_d.append(compare_ssim_backward(x, y, torch.tensor(0.7, device=dev)))
         say(f"[3 kernels] B ssim forward and D ssim backward {h}x{w}: equal to their plain "
             f"versions bit for bit, bitwise repeatable; D without dy gives the same dx")
-    return {"A": err_a, "B": max(errs_b), "C": err_c, "D": max(errs_d), **phase_experiments_small(dev)}
+    return {"A": err_a, "B": max(errs_b), "C": err_c, "D": max(errs_d), **phase_experiments_small(dev),
+            **phase_gather_small(dev)}
 
 
 def phase_slice(dev) -> dict:
@@ -880,7 +945,8 @@ def phase_experiments(dev, errs: dict) -> list:
     torch.cuda.synchronize()
     launches = read_counts()
     wall = time.perf_counter() - t0
-    if min(launches[k] for k in "EFG") == 0 or launches["B"] or launches["C"] or launches["D"]:
+    if (min(launches[k] for k in "EFG") == 0 or launches["B"] or launches["C"] or launches["D"]
+            or any(launches[k] for k in "HIJK")):
         raise AssertionError(f"experiment launches {launches}")
     n_pix = int(((sc["n_chunks"] > 0)[:, None] & ~torch.isnan(ref[1])).sum())
     for r in res_e + res_g:
@@ -938,6 +1004,73 @@ def phase_experiments(dev, errs: dict) -> list:
              "library_ms": None} for k in "EFG"]
 
 
+def phase_gather(dev, errs: dict) -> list:
+    """The gather experiments at the scripts' sizes: the three CLIs run in
+    this process with the launch counts reset before and read after; then
+    H-K against their plain versions on the same inputs, the plain
+    versions' and the library calls' ms, and the bounds."""
+    reset_counts()
+    t0 = time.perf_counter()
+    vm = exp_vmem_gather.run(dev)
+    dm = exp_dma_gather.run(dev)
+    lay = exp_gather_layout.run(dev)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    wall = time.perf_counter() - t0
+    if min(launches[k] for k in "HIJK") == 0 or any(launches[k] for k in "ABCDEFG"):
+        raise AssertionError(f"gather launches {launches}")
+    say(f"[9 gather] CLIs at the scripts' sizes: launches {launches}, {wall:.2f} s; the scripts' own "
+        f"checks: ok={vm['ok']}, A == B: {bool(torch.allclose(dm['a'], dm['b'], rtol=1e-5))} "
+        f"(False by design: the last grid step's sum against the sum over every row)")
+
+    table, ids, attr, starts, packed = vm["table"], vm["ids"], dm["attr"], dm["starts"], dm["packed"]
+    fm16 = lay["widths"][16]["field_major"]
+    cases = gather_cases(table, ids, attr, starts, packed) + [
+        ("K", lambda: gather.layout_identity(fm16), lambda: gather.layout_identity_plain(fm16))]
+    plain, want = {}, {}
+    for name, run, plain_fn in cases:
+        want[name] = plain_fn()
+        check_equal(name, run, want[name])
+        errs[name] = 0.0
+        plain[name] = time_cuda(plain_fn, 3)
+    for rec in gather.WIDTHS:
+        x = lay["tables"][rec]
+        for src in (x, lay["widths"][rec]["field_major"]):
+            check_equal(f"K {gather.layout(src)} ({rec} lanes)", lambda: gather.layout_identity(src), x)
+
+    # one PyTorch call each for the same function (timed only)
+    fn = torch.nn.functional
+    steps = ids.numel() // (gather.KROWS * gather.CHUNK)
+    bags = ids[: steps * gather.KROWS * gather.CHUNK].view(steps, gather.KROWS, gather.CHUNK)
+    bags = bags.transpose(1, 2).reshape(-1, gather.KROWS)
+    rows = starts.numel() // gather.KROWS * gather.KROWS
+    windows = starts[None, :rows].long() + torch.arange(gather.CHUNK, device=dev)[:, None]
+    steps_i = packed.shape[0] // (gather.KROWS * gather.CHUNK)
+    pk = packed[: steps_i * gather.KROWS * gather.CHUNK].view(steps_i, gather.KROWS, gather.CHUNK, gather.REC)
+    library = {"H": lambda: fn.embedding_bag(bags, table, mode="sum"),
+               "I": lambda: pk.sum(1).mul_(2.0),
+               "J": lambda: fn.embedding_bag(windows, attr, mode="sum").mul_(2.0),
+               "K": lambda: fm16.contiguous()}
+    lib_ms = {k: time_ms(f, 20) for k, f in library.items()}
+    lib_err = {k: float((f().view_as(want[k]) - want[k]).abs().max()) for k, f in library.items()}
+    bounds = dict(zip("HIJK", exp_bounds.gather_rows((table, ids), (attr, starts), fm16.shape[0])))
+    ms = {"H": vm["ms"], "I": dm["a_ms"], "J": dm["b_ms"], "K": lay["widths"][16]["ident_ms"]}
+    say("[9 gather] kernels against plain versions at the scripts' sizes (H every step's sum, K from "
+        "both layouts at 16 and 8 lanes): bit for bit, repeatable; "
+        + ", ".join(f"{k} {ms[k]:.4f} ms (bound {bounds[k]['bound_ms']:.4f}, {bounds[k]['bound_by']}, "
+                    f"{bounds[k]['bytes']} B; plain {plain[k]:.3f} ms; library {lib_ms[k]:.4f} ms, "
+                    f"|d| {lib_err[k]:.2e})" for k in "HIJK")
+        + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    names = {"H": ("gather H (vector gather from a table)", "scripts/exp_vmem_gather.py:46"),
+             "I": ("gather I (pipeline over the packed gather)", "scripts/exp_dma_gather.py:62"),
+             "J": ("gather J (window DMA, summed over every row)", "scripts/exp_dma_gather.py:117"),
+             "K": ("gather K (identity, field-major to row-major, 16 lanes)", "scripts/exp_gather_layout.py:39")}
+    return [{"name": names[k][0], "route": "cuda", "source": "sgs_tpu_torch/csrc/gather.cu",
+             "replaces": names[k][1], "launches": launches[k], "max_abs_err": errs[k], "ms": ms[k],
+             "plain_ms": plain[k], "bound_ms": bounds[k]["bound_ms"], "bound_by": bounds[k]["bound_by"],
+             "library_ms": lib_ms[k]} for k in "HIJK"]
+
+
 def main(device: str = "cuda") -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -955,7 +1088,8 @@ def main(device: str = "cuda") -> int:
     phase_scratch(dev)
     kernels = phase_timing(dev, errs, train["launches"], views, step)
     kernels += phase_experiments(dev, errs)
-    say(f"[9 done] chip_smoke wall {time.perf_counter() - t_start:.2f} s")
+    kernels += phase_gather(dev, errs)
+    say(f"[10 done] chip_smoke wall {time.perf_counter() - t_start:.2f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

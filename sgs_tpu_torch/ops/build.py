@@ -64,6 +64,7 @@ class CudaKernel:
         self.build_seconds: Optional[float] = None
         self.build_log = ""
         self._lib = None
+        self._tickets = {}
 
     def library_path(self, nvcc: str) -> Path:
         version = subprocess.run(
@@ -120,6 +121,17 @@ class CudaKernel:
             self._load(self._finish_build(self._start_build()))
         return self._lib
 
+    def ticket(self, dev):
+        """This source's block counter on `dev` for a cross-block sum:
+        allocated and zeroed once; each launch's last block resets it.
+        Two launches running at once on two streams must not share it; the
+        port launches on one stream."""
+        if dev not in self._tickets:
+            import torch
+
+            self._tickets[dev] = torch.zeros((), dtype=torch.int32, device=dev)
+        return self._tickets[dev]
+
     def launch(self, name: str, *args, count: bool = True) -> None:
         """Call launcher `name`; raise if it reports a CUDA error."""
         rc = getattr(self.lib(), name)(*args)
@@ -127,6 +139,14 @@ class CudaKernel:
             raise RuntimeError(f"{self.source.name}:{name} failed with CUDA error {rc}")
         if count:
             self.launches += 1
+
+
+class LaunchCount:
+    """The launch count of one of several kernels that share a source."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
 
 
 def build_all(kernels: Sequence[CudaKernel]) -> None:

@@ -48,7 +48,7 @@ from __future__ import annotations
 import torch
 
 from sgs_tpu_torch.core.projection import ALPHA_MAX, ALPHA_MIN, TILE, TRANSMITTANCE_EPS
-from sgs_tpu_torch.ops.build import INT, PTR, CudaKernel
+from sgs_tpu_torch.ops.build import INT, PTR, CudaKernel, LaunchCount
 from sgs_tpu_torch.ops.rows import CHUNK, REC, TILE_PIXELS, field_major
 
 KERNEL = CudaKernel(
@@ -56,14 +56,6 @@ KERNEL = CudaKernel(
     {"exp_forward_launch": [PTR] * 4 + [INT] * 7 + [PTR] * 2},
     extra_flags=("--fmad=false",),
 )
-
-
-class LaunchCount:
-    """The launch count of one of the kernels that share `KERNEL`'s source."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.launches = 0
 
 
 E, F, G = LaunchCount("E"), LaunchCount("F"), LaunchCount("G")
@@ -388,17 +380,48 @@ def pairs(windows, n_gaussians: int, walked=None) -> int:
     return int(live.sum()) * TILE_PIXELS
 
 
+def _near_rows(got, row_tile, near) -> torch.Tensor:
+    """(R, 256) bool: `near` (T, 256) spread over the rows of each tile;
+    rows past the last tile's (row_tile == T) have no pixel near a cut."""
+    t = near.shape[0]
+    live = row_tile < t
+    out = torch.zeros(got.shape[:2], dtype=torch.bool, device=got.device)
+    out[live] = near[row_tile[live].long()]
+    return out
+
+
 def rows_error(got, want, row_tile, near) -> dict:
     """Two per-row states (R, 256, 8) against each other, off the pixels
     `near` (T, 256) a cut, where an inclusion may flip: the max |err| of
     columns 0-4 (colours, t_run, t_final) and the number of last_contrib
     values that differ. Rows past the last tile's (row_tile == T) have no
     pixel near a cut."""
-    t = near.shape[0]
-    live = row_tile < t
-    near_rows = torch.zeros(got.shape[:2], dtype=torch.bool, device=got.device)
-    near_rows[live] = near[row_tile[live].long()]
-    d = (got - want).abs()[~near_rows]
+    d = (got - want).abs()[~_near_rows(got, row_tile, near)]
     return {"values": float(d[:, :5].max()) if d.numel() else 0.0,
             "last_contrib_flips": int((d[:, 5] > 0).sum()),
             "finite": bool(torch.isfinite(got).all())}
+
+
+def error_site(got, want, row_tile, chunk_row_start, near) -> dict:
+    """Where two per-row states (R, 256, 8) differ most in columns 0-4 off
+    the pixels `near` (T, 256) a cut, as `rows_error` measures them: the
+    row, its tile, the pixel and column, both values; whether that pixel
+    is near a cut and how many pixels of its tile are; and the rows of its
+    tile, up to this one, whose skip vote (some pixel has t_run >= 1e-4
+    on entering the row) differs between `got` and `want`."""
+    t = near.shape[0]
+    d = (got - want).abs()[:, :, :5].masked_fill(_near_rows(got, row_tile, near)[:, :, None], 0.0)
+    row, pixel, col = (int(i) for i in torch.unravel_index(torch.argmax(d), d.shape))
+    site = {"row": row, "pixel": pixel, "column": col, "err": float(d[row, pixel, col]),
+            "got": float(got[row, pixel, col]), "want": float(want[row, pixel, col]), "tile": None}
+    tile = int(row_tile[row])
+    if tile < t:
+        first = int(chunk_row_start[tile])
+
+        def votes(x):
+            return [True] + [bool((x[r - 1, :, 3] >= TRANSMITTANCE_EPS).any()) for r in range(first + 1, row + 1)]
+
+        site.update(tile=tile, near_cut=bool(near[tile, pixel]), tile_near_cut_pixels=int(near[tile].sum()),
+                    vote_differs_rows=[r for r, a, b in zip(range(first, row + 1), votes(got), votes(want))
+                                       if a != b])
+    return site

@@ -148,18 +148,6 @@ def _check_pair(x: torch.Tensor, y: torch.Tensor, fn: str) -> None:
         raise ValueError("x and y must have one shape and one device")
 
 
-_TICKETS: dict = {}
-
-
-def _ticket(dev: torch.device) -> torch.Tensor:
-    """Kernel B's block counter on `dev`: allocated and zeroed once; each
-    launch's last block resets it. Two launches running at once on two
-    streams must not share it; the port launches B on one stream."""
-    if dev not in _TICKETS:
-        _TICKETS[dev] = torch.zeros((), dtype=torch.int32, device=dev)
-    return _TICKETS[dev]
-
-
 def ssim_forward(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Kernel B on (3, H, W) f32 CUDA tensors; returns a 0-d tensor."""
     _check_pair(x, y, "ssim_forward")
@@ -168,7 +156,7 @@ def ssim_forward(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
                            device=x.device)
     out = torch.empty((), dtype=torch.float32, device=x.device)
     KERNEL.launch("ssim_forward", x.data_ptr(), y.data_ptr(), h, w, _window_arg(), float(3 * h * w),
-                  partials.data_ptr(), _ticket(x.device).data_ptr(), out.data_ptr(),
+                  partials.data_ptr(), KERNEL.ticket(x.device).data_ptr(), out.data_ptr(),
                   torch.cuda.current_stream(x.device).cuda_stream)
     return out
 

@@ -20,14 +20,26 @@ out_cols columns for the ablations. Here every used row counts as walked:
 the scans skip rows whose pixels have all saturated, which only a run of
 the scan can count (`chip_smoke.py` counts it on the card and passes the
 walked rows to `scene_counts`).
+
+The gather kernels (ported as Kernels H, I, J and K,
+`sgs_tpu_torch/ops/gather.py`) count what the scripts' inputs need, made
+at the scripts' sizes on the CPU (`tools/gather_inputs.py`; `chip_smoke.py`
+passes the card's copies): H reads the ids of its grid steps and the
+table rows they name once and writes every step's (128, 16) partial; I
+reads the packed rows of its steps and writes the partials; J reads the
+rows its windows cover once, the starts, and writes one (128, 16) sum; K
+reads and writes the table. H adds once per gathered element, I and J
+twice (rec + rec, then acc +=).
 """
 
 from __future__ import annotations
 
 import json
 
-from sgs_tpu_torch.ops import exp_forward, rows as rows_ops
-from sgs_tpu_torch.tools import exp_scene
+import torch
+
+from sgs_tpu_torch.ops import exp_forward, gather as gather_ops, rows as rows_ops
+from sgs_tpu_torch.tools import exp_scene, gather_inputs
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -72,10 +84,53 @@ def forward(where: str, what: str, c: dict, mode: str, out_cols: int = 8) -> dic
                  slots_read=c["read"] * rows_ops.CHUNK, P=c["P"])
 
 
+def vmem_gather_row(table, ids) -> dict:
+    """Kernel H: the ids of the grid steps and the table rows they name in,
+    every step's partial out; one add per gathered element."""
+    steps = gather_ops.grid_steps(ids.numel() // gather_ops.CHUNK)
+    n_ids = steps * gather_ops.KROWS * gather_ops.CHUNK
+    used = torch.unique(ids[:n_ids].clamp(0, table.shape[0] - 1)).numel()
+    out = steps * gather_ops.CHUNK * REC * F32
+    return fixed("vector gather from a VMEM table, summed (Kernel H)", "scripts/exp_vmem_gather.py:46",
+                 n_ids * F32 + used * REC * F32 + out, n_ids * REC, table_rows_read=used)
+
+
+def packed_sum_row(packed_rows: int) -> dict:
+    """Kernel I: the packed rows of the grid steps in, every step's partial
+    out; rec + rec and the add, 2 per element."""
+    steps = gather_ops.grid_steps(packed_rows // gather_ops.CHUNK)
+    n = steps * gather_ops.KROWS * gather_ops.CHUNK
+    return fixed("BlockSpec pipeline over the padded gather (Kernel I)", "scripts/exp_dma_gather.py:62",
+                 n * REC * F32 + steps * gather_ops.CHUNK * REC * F32, 2 * n * REC)
+
+
+def dma_gather_row(attr, starts) -> dict:
+    """Kernel J: the attribute rows that the windows cover, once, and the
+    starts in, one (128, 16) sum out; 2 operations per element."""
+    rows = gather_ops.grid_steps(starts.numel()) * gather_ops.KROWS
+    s = torch.unique(starts[:rows].long().clamp(0, attr.shape[0] - gather_ops.CHUNK))
+    covered = int(torch.clamp_max(s[1:] - s[:-1], gather_ops.CHUNK).sum()) + gather_ops.CHUNK
+    return fixed("in-kernel DMA of each row's window (Kernel J)", "scripts/exp_dma_gather.py:117",
+                 covered * REC * F32 + rows * F32 + gather_ops.CHUNK * REC * F32,
+                 2 * rows * gather_ops.CHUNK * REC, attr_rows_read=covered)
+
+
+def identity_row(src: int, rec: int) -> dict:
+    """Kernel K: the table in and out."""
+    return fixed(f"identity copy of a ({src:,}, {rec}) table (Kernel K)",
+                 "scripts/exp_gather_layout.py:39", 2 * src * rec * F32, 0)
+
+
+def gather_rows(vmem=None, dma=None, src: int = gather_ops.SRC) -> list:
+    """The gather kernels' rows on `vmem` (table, ids) and `dma` (attr,
+    starts), made at the scripts' sizes on the CPU when not given."""
+    table, ids = vmem if vmem is not None else gather_inputs.vmem_inputs()
+    attr, starts = dma if dma is not None else gather_inputs.dma_inputs()
+    return [vmem_gather_row(table, ids), packed_sum_row(starts.numel() * gather_ops.CHUNK),
+            dma_gather_row(attr, starts)] + [identity_row(src, rec) for rec in gather_ops.WIDTHS]
+
+
 def rows(width: int = 1920, height: int = 1080, n: int = 100_000) -> list:
-    gather_rows = 16128 * 128  # exp_vmem_gather.py ROWS x CHUNK ids
-    m = 1_019_904  # exp_dma_gather.py M
-    src = 2_064_384  # exp_gather_layout.py SRC
     c = scene_counts(exp_scene.build_scene(width, height, n, 0, "cpu"))
     fwd = [forward("scripts/exp_fwd.py:210", "forward variant (Kernel E)", c, mode)
            for mode in exp_forward.SCANS]
@@ -83,18 +138,7 @@ def rows(width: int = 1920, height: int = 1080, n: int = 100_000) -> list:
            for mode, oc in (("empty", 8), ("outonly", 8), ("alpha", 8), ("alpha", 1))]
     tr = [forward("scripts/exp_transposed.py:147", "transposed forward (Kernel G)", c, mode)
           for mode in ("hs", "mxu")]
-    return fwd + abl + [
-        fixed("vector gather from a VMEM table, summed", "scripts/exp_vmem_gather.py:46",
-              gather_rows * F32 + 100_000 * REC * F32 + 128 * REC * F32, gather_rows * REC),
-        fixed("BlockSpec pipeline over the padded gather", "scripts/exp_dma_gather.py:62",
-              gather_rows * REC * F32 + 128 * REC * F32, gather_rows * REC),
-        fixed("in-kernel DMA of each row's window", "scripts/exp_dma_gather.py:117",
-              (m + 128) * REC * F32 + 16128 * F32 + 128 * REC * F32, gather_rows * REC),
-        fixed("identity copy of a (2,064,384, 16) table", "scripts/exp_gather_layout.py:39",
-              2 * src * 16 * F32, 0),
-        fixed("identity copy of a (2,064,384, 8) table", "scripts/exp_gather_layout.py:39",
-              2 * src * 8 * F32, 0),
-    ] + tr
+    return fwd + abl + gather_rows() + tr
 
 
 def main() -> None:

@@ -1,4 +1,4 @@
-"""Kernels A-G on the card against their plain PyTorch versions.
+"""Kernels A-K on the card against their plain PyTorch versions.
 
 CUDA kernels have no CPU mode, so these tests need an NVIDIA GPU with nvcc
 and skip without one. On the card (no JAX there, so no conftest):
@@ -205,3 +205,43 @@ def test_exp_ablation_kernel_matches_plain(dev, mode, krows, out_cols):
         got, want = got[:1], want[:1]
     assert torch.equal(got, want), f"Kernel F {mode} differs from its plain version"
     assert torch.equal(ef.exp_ablation(*args, mode, krows, out_cols), want[0])
+
+
+@pytest.mark.parametrize("rows", [32, 37, 1100])
+def test_gather_kernels_match_plain(dev, rows):
+    """H, I and J bit for bit and repeatable, at the CPU tests' size, at 37
+    rows (not a whole number of 8-row steps) and at 1,100 (J over 9
+    blocks, the last ragged); some windows start at m."""
+    from sgs_tpu_torch.ops import gather as g
+    from sgs_tpu_torch.tools import gather_inputs as gi
+
+    table, ids = gi.vmem_inputs(1000, rows, seed=rows, device=dev)
+    m = 50 * rows
+    attr, starts = gi.dma_inputs(m, rows, seed=rows, device=dev)
+    assert int(starts[: rows // 8 * 8].max()) == m
+    packed = gi.pack(attr, starts, m)
+    cases = [(g.H, lambda: g.vmem_gather_steps(table, ids), g.vmem_gather_steps_plain(table, ids)),
+             (g.I, lambda: g.packed_sum_steps(packed), g.packed_sum_steps_plain(packed)),
+             (g.J, lambda: g.dma_gather(attr, starts), g.dma_gather_plain(attr, starts))]
+    for count, run, want in cases:
+        before = count.launches
+        got = run()
+        assert count.launches == before + 1
+        assert torch.equal(got, run()), f"Kernel {count.name} is not bitwise repeatable"
+        assert torch.equal(got, want), f"Kernel {count.name} differs from its plain version"
+
+
+@pytest.mark.parametrize("rows,rec", [(16384, 16), (16388, 8), (1001, 16), (1002, 8)])
+def test_identity_kernel_matches_plain(dev, rows, rec):
+    """K from a row-major and a field-major source, also with a last tile
+    of 4 rows (16,388) and rows not a multiple of 4 (the field-major
+    copy's scalar path)."""
+    from sgs_tpu_torch.ops import gather as g
+
+    x = torch.as_tensor(np.random.default_rng(rows).normal(size=(rows, rec)).astype(np.float32), device=dev)
+    for src in (x, g.field_major(x)):
+        before = g.K.launches
+        got = g.layout_identity(src)
+        assert g.K.launches == before + 1
+        assert got.is_contiguous() and torch.equal(got, g.layout_identity(src))
+        assert torch.equal(got, x)

@@ -1,6 +1,7 @@
 """`sgs_tpu_torch.tools.exp_bounds` lists a bound for every `pl.pallas_call`
 of the six experiment scripts, at the line where each script makes it,
-and counts the forward kernels' slots, pairs and per-row state."""
+and counts the forward kernels' slots, pairs and per-row state and the
+gather kernels' bytes and operations."""
 
 from pathlib import Path
 
@@ -8,7 +9,7 @@ import pytest
 import torch
 
 from sgs_tpu_torch.ops import exp_forward
-from sgs_tpu_torch.tools import exp_bounds, exp_scene
+from sgs_tpu_torch.tools import exp_bounds, exp_scene, gather_inputs
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -65,3 +66,28 @@ def test_scene_counts_walked_rows():
     assert c_half["read"] == sc["rows_used"] // 2 and c_all["read"] == sc["rows_used"]
     assert c_half["P"] == exp_forward.pairs(sc["windows"], sc["n_gaussians"], walked) < c_all["P"]
     assert c_all["rows"] == c_half["rows"] == sc["max_rows"]
+
+
+def test_gather_rows_count_partials_and_two_ops():
+    """H and I write every grid step's (128, 16) partial; H counts one f32
+    operation per gathered element, I and J two (rec + rec, then the add);
+    H reads the table rows its ids name, J the attribute rows its windows
+    cover, each once; rows past the last whole step of 8 count nothing."""
+    table, ids = gather_inputs.vmem_inputs(50, 20, seed=0)  # 2 steps, 4 rows past them
+    n_ids, partials = 2 * 8 * 128, 2 * 128 * 16 * 4
+    used = torch.unique(ids[:n_ids]).numel()
+    h = exp_bounds.vmem_gather_row(table, ids)
+    assert h["bytes"] == n_ids * 4 + used * 16 * 4 + partials and h["ops"] == n_ids * 16
+    i = exp_bounds.packed_sum_row(20 * 128)
+    assert i["bytes"] == n_ids * 16 * 4 + partials and i["ops"] == 2 * n_ids * 16
+    attr = torch.zeros((1000, 16))
+    # 8 rows in the grid (the 9th is past it); start 900 clamps to 872:
+    # [0, 192) + [300, 428) + [860, 1000) = 460 rows
+    starts = torch.tensor([0, 0, 64, 300, 860, 872, 872, 900, 5], dtype=torch.int32)
+    j = exp_bounds.dma_gather_row(attr, starts)
+    assert j["attr_rows_read"] == 460
+    assert j["bytes"] == 460 * 16 * 4 + 8 * 4 + 128 * 16 * 4 and j["ops"] == 2 * 8 * 128 * 16
+    k = exp_bounds.identity_row(100, 8)
+    assert k["bytes"] == 2 * 100 * 8 * 4 and k["ops"] == 0 and k["bound_by"] == "bytes"
+    for row in (h, i, j):
+        assert row["bound_by"] == "bytes" and row["bound_ms"] > 0

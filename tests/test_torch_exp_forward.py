@@ -322,3 +322,22 @@ def test_cli_runs_on_the_cpu(cli, capsys):
     for err in errs:
         assert err["color"] <= IMAGE_ATOL and err["t_final"] <= IMAGE_ATOL
         assert err["last_contrib"] == 0
+
+
+def test_error_site_names_row_pixel_and_vote():
+    """The diagnosis of a failed mxu check: the largest error off the
+    pixels at a cut, its row, tile and pixel, and the rows whose skip vote
+    differs between the two states."""
+    want = torch.zeros((4, 256, 8))
+    want[:, :, 3] = 0.5
+    got = want.clone()
+    got[1, :, 3] = 0.0  # every pixel saturated: row 2's vote flips
+    got[2, 5, 0] = 1.0
+    got[3, 9, 1] = 2.0  # larger, but pixel 9 is at a cut
+    near = torch.zeros((1, 256), dtype=torch.bool)
+    near[0, 9] = True
+    row_tile = torch.tensor([0, 0, 0, 0], dtype=torch.int32)
+    site = ef.error_site(got, want, row_tile, torch.tensor([0], dtype=torch.int32), near)
+    assert (site["row"], site["pixel"], site["column"], site["tile"]) == (2, 5, 0, 0)
+    assert site["err"] == 1.0 and site["near_cut"] is False and site["tile_near_cut_pixels"] == 1
+    assert site["vote_differs_rows"] == [2]
