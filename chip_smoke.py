@@ -19,8 +19,11 @@ Phases:
      sizes from one smaller than a tile to 1080x1920, each also twice, D
      also without dy; Kernels E, F and G (the forward-raster experiments)
      on the random scene binned by rect and packed into rows
-     (`ops/rows.py`), every mode and krows, each twice: E and G's hs and
-     nocp and every F mode bit for bit, mxu within its stated tolerance;
+     (`ops/rows.py`), and on the edge scene (`exp_scene.edge_scene`:
+     tiles of 1 row back to back, of 33 and 40 rows, a tile saturated
+     mid-row and one with warps that hold no live pixel), every mode and
+     krows, each twice: E and G's hs and nocp and every F mode bit for
+     bit, mxu within its stated tolerance;
      Kernels H, I and J (the gather experiments) at 32, 37 (not a whole
      number of 8-row grid steps) and 1,100 rows (J over 9 blocks, the
      last ragged), windows starting at the table's end, and K from a
@@ -58,9 +61,12 @@ Phases:
      with the launch counts reset before and read after, every
      non-ablation variant held to Kernel A on the same bins; then E, F and
      G in every mode and krows against their plain versions on the same
-     rows, and their bounds (`tools/exp_bounds.py`); a failed mxu check
-     names the row, tile and pixel of its largest error, whether the
-     tile's skip votes differ and whether the pixel is at a cut;
+     rows, E and G mxu three times more with a digest of every state, the
+     scene's digest (its packed rows, tile rows and schedule), the share of
+     walked warps with no live pixel, and the bounds (`tools/exp_bounds.py`);
+     a failed mxu check names the row, tile and pixel of its largest
+     error, whether the tile's skip votes differ and whether the pixel is
+     at a cut;
   9. the gather experiments at the scripts' full sizes: the three CLIs
      (`python -m sgs_tpu_torch.tools.exp_vmem_gather`, `exp_dma_gather`
      and `exp_gather_layout`, through their `run`) in this process, with
@@ -390,6 +396,42 @@ def compare_experiments(pk: dict, krows_list, near=None) -> dict:
     return errs
 
 
+def mxu_thrice(sc: dict, near) -> dict:
+    """E and G mxu at every krows against their plain versions three times
+    over, each time run twice (bitwise repeatable, `check_rows`), with
+    digests of every state, so that runs and calls can be compared: the
+    kernels must give the same bits in all three; whether the plain
+    versions do is printed. Returns the max |err| of each kernel."""
+    crs, nch, sched, tx = sc["chunk_row_start"], sc["n_chunks"], sc["schedule"], sc["tiles_x"]
+    fm, im = sc["packed_fm"], sc["packed"]
+    cases = {"E": (lambda: exp_forward.forward_rows_plain(fm, crs, nch, sched, tx, "mxu"),
+                   lambda kr: exp_forward.forward_rows(fm, crs, nch, sched, tx, "mxu", kr)),
+             "G": (lambda: exp_forward.transposed_rows_plain(im, crs, nch, sched, tx, "mxu").transpose(1, 2),
+                   lambda kr: exp_forward.transposed_rows(im, crs, nch, sched, tx, "mxu", kr).transpose(1, 2))}
+    errs, runs = {"E": 0.0, "G": 0.0}, []
+    for i in range(3):
+        seen = {}
+        for name, (plain, kernel) in cases.items():
+            want = plain()
+            seen[f"{name} plain"] = exp_scene.tensor_digest(want)
+            for kr in exp_forward.KROWS:
+                got = kernel(kr)
+                err = check_rows(f"{name} mxu krows {kr} (run {i + 1} of 3)", got, kernel(kr), want, "mxu", sc, near)
+                errs[name] = max(errs[name], err)
+                seen[f"{name} krows {kr}"] = exp_scene.tensor_digest(got)
+                seen[f"{name} krows {kr} |err|"] = err
+        runs.append(seen)
+        say(f"[8 mxu] run {i + 1} of 3: " + ", ".join(
+            f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}" for k, v in seen.items()))
+    differs = [k for k in runs[0] if any(r[k] != runs[0][k] for r in runs[1:])]
+    say(f"[8 mxu] across the three runs: kernels the same bits: "
+        f"{not [k for k in differs if 'plain' not in k]}, plain versions the same bits: "
+        f"{not [k for k in differs if 'plain' in k]}")
+    if [k for k in differs if "plain" not in k]:
+        raise AssertionError(f"E or G mxu differ between runs of the same rows: {differs}")
+    return errs
+
+
 def phase_experiments_small(dev) -> dict:
     """Phase 3 for Kernels E, F and G: the random scene (an empty and a
     saturated tile) packed into rows; every mode and krows against the
@@ -412,7 +454,18 @@ def phase_experiments_small(dev) -> dict:
         f"their plain versions bit for bit and repeatable; mxu max |err| E {errs['E']:.2e}, "
         f"G {errs['G']:.2e} (tolerance {exp_forward.MXU_ATOL}); plain ms at this size: "
         + ", ".join(f"{k} {v:.3f}" for k, v in plain.items()))
-    return errs
+    edge = exp_scene.edge_scene(dev)
+    e = compare_experiments(edge, exp_forward.KROWS)
+    hs = exp_forward.forward_rows(edge["packed_fm"], edge["chunk_row_start"], edge["n_chunks"],
+                                  edge["schedule"], edge["tiles_x"], "hs")
+    dead = exp_forward.dead_warps(hs, edge["row_first"], edge["row_tile"], edge["num_tiles"])
+    if dead["dead_warps"] == 0:
+        raise AssertionError(f"the edge scene has no warp without a live pixel: {dead}")
+    say(f"[3 kernels] E, F, G on the edge scene ({edge['num_tiles']} tiles of 0 to 40 rows, "
+        f"{edge['rows_used']} rows; a tile saturated mid-row, a half-saturated tile): every mode "
+        f"and krows as above; mxu max |err| E {e['E']:.2e}, G {e['G']:.2e}; walked warps "
+        f"without a live pixel: {dead['dead_warps']} of {dead['warps_walked']}")
+    return {k: max(errs[k], e[k]) for k in errs}
 
 
 def check_equal(name: str, run, want) -> None:
@@ -938,6 +991,7 @@ def phase_experiments(dev, errs: dict) -> list:
     t0 = time.perf_counter()
     sc = exp_scene.build_scene(device=dev)
     exp_scene.describe(sc, 0)
+    say(f"[8 experiments] scene digest {exp_scene.digest(sc)} (packed rows, tile rows, schedule)")
     ref, near = exp_scene.references(sc)
     res_e = exp_fwd.run(sc, dev, ref, near)
     res_f = exp_fwd2.run(sc, dev)
@@ -965,6 +1019,8 @@ def phase_experiments(dev, errs: dict) -> list:
     e = compare_experiments(sc, exp_forward.KROWS, near)
     for k in "EFG":
         errs[k] = max(errs[k], e[k])
+    for k, v in mxu_thrice(sc, near).items():
+        errs[k] = max(errs[k], v)
     crs, nch, sched, tx = sc["chunk_row_start"], sc["n_chunks"], sc["schedule"], sc["tiles_x"]
     fm, im = sc["packed_fm"], sc["packed"]
     t1 = time.perf_counter()
@@ -990,6 +1046,10 @@ def phase_experiments(dev, errs: dict) -> list:
         f"({a_bound[1]}), {float(n_contrib.sum()):.0f} instance-pixel pairs below n_contrib")
     ms = {"E": res_e[1]["ms"], "F": next(x["ms"] for x in res_f if x.get("mode") == "alpha"),
           "G": res_g[1]["ms"]}
+    dead = exp_forward.dead_warps(exp_forward.forward_rows(fm, crs, nch, sched, tx, "hs"), sc["row_first"],
+                                  sc["row_tile"], sc["num_tiles"])
+    say(f"[8 experiments] walked warps without a live pixel (hs forms only their t_run): "
+        f"{dead['dead_warps']} of {dead['warps_walked']} ({dead['dead_warps'] / dead['warps_walked']:.4f})")
     say(f"[8 experiments] kernels against plain versions on the 1080p rows (krows "
         f"{' and '.join(map(str, exp_forward.KROWS))}, every mode): E, G hs/nocp and F bit for bit, "
         f"mxu max |err| E {e['E']:.2e} G {e['G']:.2e}; {walked['read']} of {sc['rows_used']} rows "

@@ -39,8 +39,8 @@ Where the port defines what the TPU leaves open:
 On a CUDA tensor each wrapper launches its kernel (`csrc/exp_forward.cu`);
 on a CPU tensor it runs the plain version. There is no fallback. hs and
 nocp (E and G) and F equal their plain versions bit for bit; mxu does not
-(3xTF32 tensor-core sums against the plain version's f32 matmul; see
-MXU_ATOL).
+(two-term TF32 tensor-core sums of base-2 logarithms against the plain
+version's f32 matmul of natural ones; see MXU_ATOL).
 """
 
 from __future__ import annotations
@@ -53,7 +53,8 @@ from sgs_tpu_torch.ops.rows import CHUNK, REC, TILE_PIXELS, field_major
 
 KERNEL = CudaKernel(
     "exp_forward.cu",
-    {"exp_forward_launch": [PTR] * 4 + [INT] * 7 + [PTR] * 2},
+    {"exp_forward_launch": [PTR] * 4 + [INT] * 7 + [PTR] * 2,
+     "exp_forward_blocks_per_sm": [INT] * 4},
     extra_flags=("--fmad=false",),
 )
 
@@ -68,10 +69,12 @@ SROWS = 8  # state columns: r, g, b, t_run, t_final, last_contrib, 0, 0
 INITIAL = (0.0, 0.0, 0.0, 1.0, 1.0, 0.0, 0.0, 0.0)
 # mxu against its plain version, off the pixels at a cut (`near_cut`,
 # where an inclusion may flip): the kernel's two-term TF32 sum of 64
-# log-transmittances keeps about 22 bits of each term, so exp() of an
-# included lane's sum (|sum| < 10) differs from the f32 matmul's by about
-# 1e-6 relative: colours, t_run and t_final within 2e-5, last_contrib
-# equal.
+# log-transmittances keeps about 22 bits of each term, and it takes them
+# in base 2 on the SFU (log2 within 2^-22 absolute for u in [0.5, 1] and
+# 2 ulp below, exp2 within 2 ulp), so 2^zc of an included lane's sum
+# (|sum| < 14) differs from the f32 matmul's exp by about 1e-6 relative,
+# 1.2e-5 if the errors of 64 live lanes all added up: colours, t_run and
+# t_final within 2e-5, last_contrib equal.
 MXU_ATOL = 2e-5
 # The windows of `near_cut`: 0.1% of the transmittance cut, and 1e-5 of
 # the alpha cut, both far wider than the rounding of the products (a few
@@ -83,14 +86,16 @@ CUT_A_WINDOW = 1e-5
 # the quadratic, exp, the opacity product, the clamp and 3 for the
 # tests), u 1, s 1, inclusion 3, the weight 3, colours 6 (3 products, 3
 # tree adds), t_final 2, last_contrib 4; plus the scan: hs 321/64 ~ 5
-# products, mxu log, clamp, 2 exp and a difference (5) beside the
-# triangular contraction z @ tri on the tensor cores; nocp none. F's
+# products, mxu log, clamp, 2 exp and a difference (5; the kernel does 4:
+# its cp_prev is the previous lane's exp2, and an f32 carry add takes the
+# difference's place) beside the triangular contraction z @ tri on the
+# tensor cores; nocp none. F's
 # alpha: 17 and 1 tree add.
 OPS_PER_PAIR = {"hs": 42, "mxu": 42, "nocp": 37, "alpha": 18, "outonly": 0, "empty": 0}
 # The triangular contraction needs 64 * 65 / 2 multiply-adds per pixel and
-# row, 65 flops per pair. The kernel does more, as implementation
-# overhead: 36 of the 64 8x8 blocks, each twice for the split operand,
-# 144 flops per pair.
+# row, 65 flops per pair. The kernel does less on the tensor cores: each
+# 8-column block's inclusive sums, one 8x8 triangle per block, twice for
+# the split operand (32 flops per pair), then one f32 carry add per pair.
 TF32_FLOPS_PER_PAIR = {"mxu": CHUNK + 1}
 # f32 fields of each slot a mode reads: x, y, conic a, b, c, opacity, and
 # the colour for the scans. `empty` and `outonly` read no record.
@@ -128,6 +133,37 @@ def _launch(count: LaunchCount, packed, crs, nch, schedule, tiles_x, mode, fm: b
         count=False,
     )
     count.launches += 1
+
+
+def blocks_per_sm(mode: str, field_major_rows: bool, krows: int, out_cols: int = SROWS) -> int:
+    """The blocks of one instantiation resident on each SM of the current
+    card (what its launcher gives each SM). Needs the card."""
+    n = KERNEL.lib().exp_forward_blocks_per_sm(MODES[mode], int(field_major_rows), krows, out_cols)
+    if n < 0:
+        raise RuntimeError(f"exp_forward.cu: occupancy query failed with CUDA error {-n}")
+    return n
+
+
+def walked_rows(rows_out, row_first, row_tile, num_tiles: int):
+    """From a per-row state (R, 256, 8) of E (or G's transposed): the rows
+    a scan walks, (R,) bool (some pixel of the tile has t_run >= 1e-4 on
+    entering the row), and the live pixels on entering each row, (R,
+    256). `row_first` (R,) flags each tile's first row, `row_tile` (R,) is
+    the row's tile (num_tiles past the used rows)."""
+    t_in = torch.roll(rows_out[:, :, 3], 1, dims=0)
+    t_in = torch.where(row_first.bool()[:, None], 1.0, t_in)
+    live = t_in >= TRANSMITTANCE_EPS
+    return live.any(dim=1) & (row_tile < num_tiles), live
+
+
+def dead_warps(rows_out, row_first, row_tile, num_tiles: int) -> dict:
+    """The rows walked (`walked_rows`) and, of their warps (32 pixels),
+    those with no live pixel, which in hs form only t_run."""
+    walked, live = walked_rows(rows_out, row_first, row_tile, num_tiles)
+    dead = ~live.view(live.shape[0], TILE_PIXELS // 32, 32).any(dim=2) & walked[:, None]
+    n_walked = int(walked.sum())
+    return {"rows_walked": n_walked, "warps_walked": n_walked * (TILE_PIXELS // 32),
+            "dead_warps": int(dead.sum())}
 
 
 def last_rows(crs, nch, max_rows: int) -> torch.Tensor:

@@ -88,6 +88,81 @@ def pack(p: dict, width: int, height: int) -> dict:
     return out
 
 
+def tensor_digest(*xs) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes: two
+    runs that print the same digest held the same values."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in xs:
+        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def digest(sc: dict) -> str:
+    """The scene's packed rows, tile rows and schedule as one digest."""
+    return tensor_digest(sc["packed"], sc["chunk_row_start"], sc["n_chunks"], sc["schedule"])
+
+
+# Tiles of `edge_scene` by kind and rows: the ring's edges (tiles of 1 row
+# back to back, 33 and 40 rows, more than the 32 rows of the deepest ring),
+# an empty tile, a tile whose pixels all saturate in the middle of its first
+# row ("wall"), and a tile whose top half saturates in its first row while
+# the bottom half walks on ("half": its warps 0-3 hold no live pixel in the
+# rows after). The other tiles take 1 or 2 rows of random Gaussians.
+EDGE_TILES = [("random", 1), ("random", 0), ("faint", 40), ("random", 1), ("wall", 3),
+              ("half", 4), ("random", 2), ("faint", 33)]
+EDGE_TILES_X, EDGE_TILES_Y = 20, 15
+
+
+def _edge_tile(rng, kind: str, n_rows: int, x0: float, y0: float):
+    """(m, 9) records x, y, conic a, b, c, opacity, r, g, b of one tile of
+    `edge_scene`, depth-ordered; a last row is partly filled."""
+    m = max(n_rows * rows.CHUNK - int(rng.integers(0, 20)), 0) if n_rows else 0
+    if kind == "wall" or kind == "half":
+        m = n_rows * rows.CHUNK
+    rec = np.zeros((m, 9), np.float32)
+    rec[:, 6:9] = rng.uniform(0, 1, (m, 3))
+    rec[:, 0] = x0 + rng.uniform(-4, 20, m)
+    rec[:, 1] = y0 + rng.uniform(-4, 20, m)
+    l1, l2, th = rng.uniform(0.005, 0.5, m), rng.uniform(0.005, 0.5, m), rng.uniform(0, np.pi, m)
+    c, s = np.cos(th), np.sin(th)
+    rec[:, 2], rec[:, 3], rec[:, 4] = l1 * c * c + l2 * s * s, (l1 - l2) * s * c, l1 * s * s + l2 * c * c
+    rec[:, 5] = rng.uniform(0.05, 0.99, m) if kind != "faint" else rng.uniform(0.0005, 0.004, m)
+    if kind == "wall":  # flat: alpha 0.95 at every pixel, saturated at the 4th instance
+        rec[:, 2:5] = (1e-9, 0.0, 1e-9)
+        rec[:, 5] = 0.95
+    if kind == "half":  # first row: 8 instances on each of pixel rows 0-7, flat along x
+        k = np.arange(rows.CHUNK)
+        rec[: rows.CHUNK, 1] = y0 + (k % 8)
+        rec[: rows.CHUNK, 2:5] = (1e-9, 0.0, 2.0)
+        rec[: rows.CHUNK, 5] = 0.95
+    return rec
+
+
+def edge_scene(device, seed: int = 0) -> dict:
+    """A 320x240 view of synthetic tiles (`EDGE_TILES` first, then 1 or 2
+    rows of random Gaussians each) packed into rows like `pack`'s, for the
+    kernels' edge cases: the keys of `pack` that Kernels E, F and G and
+    their plain versions read."""
+    rng = np.random.default_rng(seed)
+    num_tiles = EDGE_TILES_X * EDGE_TILES_Y
+    kinds = EDGE_TILES + [("random", 1 + i % 2) for i in range(num_tiles - len(EDGE_TILES))]
+    recs = [_edge_tile(rng, kind, n, (t % EDGE_TILES_X) * TILE, (t // EDGE_TILES_X) * TILE)
+            for t, (kind, n) in enumerate(kinds)]
+    counts = torch.tensor([len(r) for r in recs], dtype=torch.int32)
+    attr = torch.zeros((int(counts.sum()) + 1, rows.REC), dtype=torch.float32)
+    attr[:-1, :9] = torch.as_tensor(np.concatenate(recs))
+    attr[:, 9] = torch.arange(attr.shape[0], dtype=torch.float32)
+    end = torch.cumsum(counts, 0).to(torch.int32)
+    out = rows.pack_rows(attr.to(device), (end - counts).to(device), end.to(device), KROWS_MAX)
+    nch = out["n_chunks"]
+    out.update(packed_fm=rows.field_major(out["packed"]), num_tiles=num_tiles, tiles_x=EDGE_TILES_X,
+               tiles_y=EDGE_TILES_Y, n_gaussians=attr.shape[0] - 1,
+               schedule=torch.argsort(nch.cpu(), descending=True, stable=True).to(torch.int32).to(device))
+    return out
+
+
 def sizes(sc: dict) -> dict:
     """Instances, rows, slots and the bytes of the packed rows and of the
     per-row state ((rows, 256, 8) f32) of a scene."""

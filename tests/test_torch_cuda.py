@@ -159,13 +159,24 @@ def _exp_scene(dev):
     return sc
 
 
+def _edge_scene(dev):
+    """Tiles of 1 row back to back, of 33 and 40 rows (past the deepest
+    ring), an empty tile, a tile saturated in the middle of its first row
+    and one whose top half saturates while its bottom half walks on (warps
+    with no live pixel), 300 tiles in all (more than one per block)."""
+    from sgs_tpu_torch.tools import exp_scene
+
+    return exp_scene.edge_scene(dev)
+
+
+@pytest.mark.parametrize("scene", ["random", "edges"])
 @pytest.mark.parametrize("krows", [8, 32])
 @pytest.mark.parametrize("kernel,mode", [("E", "hs"), ("E", "nocp"), ("E", "mxu"),
                                          ("G", "hs"), ("G", "mxu")])
-def test_exp_forward_kernels_match_plain(dev, kernel, mode, krows):
+def test_exp_forward_kernels_match_plain(dev, kernel, mode, krows, scene):
     from sgs_tpu_torch.ops import exp_forward as ef
 
-    sc = _exp_scene(dev)
+    sc = _exp_scene(dev) if scene == "random" else _edge_scene(dev)
     crs, nch, sched, tx = sc["chunk_row_start"], sc["n_chunks"], sc["schedule"], sc["tiles_x"]
     if kernel == "E":
         count, run = ef.E, lambda: ef.forward_rows(sc["packed_fm"], crs, nch, sched, tx, mode, krows)
@@ -180,6 +191,10 @@ def test_exp_forward_kernels_match_plain(dev, kernel, mode, krows):
     if mode != "nocp":
         t_final = want[:, 4, :] if kernel == "G" else want[:, :, 4]
         assert float(t_final.min()) < 1e-3, "some pixel should saturate"
+    if scene == "edges" and mode != "nocp":
+        state = want.transpose(1, 2) if kernel == "G" else want
+        dead = ef.dead_warps(state, sc["row_first"], sc["row_tile"], sc["num_tiles"])
+        assert dead["dead_warps"] > 0, "some walked warp should hold no live pixel"
     if mode != "mxu":
         assert torch.equal(got, want), f"Kernel {kernel} {mode} differs from its plain version"
         return
@@ -190,12 +205,13 @@ def test_exp_forward_kernels_match_plain(dev, kernel, mode, krows):
     assert err["finite"] and err["values"] <= ef.MXU_ATOL and err["last_contrib_flips"] == 0, err
 
 
+@pytest.mark.parametrize("scene", ["random", "edges"])
 @pytest.mark.parametrize("krows,out_cols", [(8, 8), (8, 1), (32, 1)])
 @pytest.mark.parametrize("mode", ["empty", "outonly", "alpha"])
-def test_exp_ablation_kernel_matches_plain(dev, mode, krows, out_cols):
+def test_exp_ablation_kernel_matches_plain(dev, mode, krows, out_cols, scene):
     from sgs_tpu_torch.ops import exp_forward as ef
 
-    sc = _exp_scene(dev)
+    sc = _exp_scene(dev) if scene == "random" else _edge_scene(dev)
     args = (sc["packed_fm"], sc["chunk_row_start"], sc["n_chunks"], sc["schedule"], sc["tiles_x"])
     before = ef.F.launches
     got = ef.ablation_rows(*args, mode, krows, out_cols)

@@ -38,7 +38,7 @@ from sgs_tpu.ops.pallas import flat_raster as fr
 from sgs_tpu.render import tiled as jtiled
 from sgs_tpu_torch.ops import exp_forward as ef
 from sgs_tpu_torch.ops import rows
-from sgs_tpu_torch.tools import exp_fwd, exp_fwd2, exp_scene, exp_transposed
+from sgs_tpu_torch.tools import exp_fwd, exp_fwd2, exp_scene, exp_transposed, scan_ablation
 
 torch.set_num_threads(1)
 SCRIPTS = Path(__file__).resolve().parents[1] / "scripts"
@@ -341,3 +341,62 @@ def test_error_site_names_row_pixel_and_vote():
     assert (site["row"], site["pixel"], site["column"], site["tile"]) == (2, 5, 0, 0)
     assert site["err"] == 1.0 and site["near_cut"] is False and site["tile_near_cut_pixels"] == 1
     assert site["vote_differs_rows"] == [2]
+
+
+def test_scene_digest_is_deterministic(scene):
+    """The digest that phase 8 of chip_smoke.py prints: the same scene built
+    twice from its seed gives the same digest; another seed or one changed
+    value gives another."""
+    again = exp_scene.build_scene(64, 48, 300, seed=0, device="cpu")
+    assert exp_scene.digest(again) == exp_scene.digest(scene)
+    assert exp_scene.digest(exp_scene.build_scene(64, 48, 300, seed=1, device="cpu")) != exp_scene.digest(scene)
+    again["packed"][5, 2] += 1.0
+    assert exp_scene.digest(again) != exp_scene.digest(scene)
+
+
+def test_edge_scene_holds_its_edge_cases():
+    """The kernels' edge scene on the plain versions: the tiles of
+    `EDGE_TILES` hold their rows; the saturated tile's rows after its
+    first are skipped; in the half-saturated tile's rows after its first,
+    warps 0-3 (pixel rows 0-7) hold no live pixel and the others do; the
+    dead-warp count agrees with the plain scan's walked rows."""
+    sc = exp_scene.edge_scene("cpu")
+    assert sc["n_chunks"][: len(exp_scene.EDGE_TILES)].tolist() == [n for _, n in exp_scene.EDGE_TILES]
+    args = (sc["chunk_row_start"], sc["n_chunks"], sc["schedule"], sc["tiles_x"])
+    out = ef.forward_rows(sc["packed_fm"], *args, "hs")
+    _, info = ef.scan_plain(sc["packed_fm"], *args[:2], sc["tiles_x"], "hs")
+    dead = ef.dead_warps(out, sc["row_first"], sc["row_tile"], sc["num_tiles"])
+    assert dead["rows_walked"] == int(info["walked"].sum()) == sc["rows_used"] - 2
+    wall, half = (int(sc["chunk_row_start"][t]) for t in (4, 5))
+    assert not info["walked"][wall + 1] and not info["walked"][wall + 2]
+    live = (out[half: half + 3, :, 3] >= 1e-4).view(3, 8, 32).any(dim=2)
+    assert not live[:, :4].any() and live[:, 4:].all()
+    assert dead["dead_warps"] >= 12
+    assert torch.equal(ef.transposed_rows(sc["packed"], *args, "hs"), out.transpose(1, 2))
+
+
+def test_scan_ablation_runs_on_the_cpu(capsys):
+    """The ablation CLI at a small size on the CPU: one line per scan
+    instantiation with "not measured" for every time, and the dead-warp
+    count from the plain version."""
+    res = scan_ablation.main(["--width", 64, "--height", 48, "--n", 300, "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "64x48, 300 Gaussians" in out and "not measured" in out
+    assert len(res["rows"]) == 2 * len(scan_ablation.INSTANCES) == 16
+    assert all(r["committed_ms"] == "not measured" for r in res["rows"])
+    assert res["dead_warps"]["rows_walked"] > 0 and 0.0 <= res["dead_warps"]["share"] <= 1.0
+    bal = res["balance"]
+    assert bal["snake_max_over_mean"] >= bal["greedy_max_over_mean"] >= 1.0
+
+
+def test_block_balance_counts_walked_rows():
+    """The snake and greedy assignments of `scan_ablation.block_balance` on
+    a hand-made schedule: tiles of 4, 3, 2 and 1 walked rows over two
+    blocks; the snake gives 4 + 1 and 3 + 2, the greedy the same."""
+    row_tile = torch.tensor([0, 0, 0, 0, 1, 1, 1, 2, 2, 3, 4])
+    sc = {"num_tiles": 4, "row_tile": row_tile, "schedule": torch.tensor([0, 1, 2, 3], dtype=torch.int32)}
+    bal = scan_ablation.block_balance(sc, row_tile < 4, 2)
+    assert bal["mean_walked_rows"] == 5.0
+    assert bal["snake_max_over_mean"] == 1.0 and bal["greedy_max_over_mean"] == 1.0
+    bal = scan_ablation.block_balance(sc, row_tile < 4, 3)
+    assert bal["snake_max_over_mean"] == 4.0 / (10 / 3) and bal["greedy_max_over_mean"] == 4.0 / (10 / 3)
