@@ -6,7 +6,9 @@
 Phases:
   1. device: the card's name and power limit (nvidia-smi) and torch's name;
   2. build: the six CUDA sources built cold from `sgs_tpu_torch/csrc/`,
-     one nvcc per source, started together;
+     with the L2 read probe (`csrc/l2_read.cu`) and Kernel F's PR 10 alpha
+     path (`tools/scan_ablation.py`'s `alpha_pr10` variant of
+     `exp_forward.cu`), one nvcc per source, started together;
   3. kernels against their plain PyTorch versions on the card: Kernels A
      (raster forward) and C (raster backward), bit for bit, on a seeded
      random scene with an empty tile, a saturated tile and a width that
@@ -23,7 +25,8 @@ Phases:
      tiles of 1 row back to back, of 33 and 40 rows, a tile saturated
      mid-row and one with warps that hold no live pixel), every mode and
      krows, each twice: E and G's hs and nocp and every F mode bit for
-     bit, mxu within its stated tolerance;
+     bit, mxu within its stated tolerance; the random scene must hold
+     records that F alpha's warps skip and records they do not;
      Kernels H, I and J (the gather experiments) at 32, 37 (not a whole
      number of 8-row grid steps) and 1,100 rows (J over 9 blocks, the
      last ragged), windows starting at the table's end, and K from a
@@ -63,7 +66,10 @@ Phases:
      G in every mode and krows against their plain versions on the same
      rows, E and G mxu three times more with a digest of every state, the
      scene's digest (its packed rows, tile rows and schedule), the share of
-     walked warps with no live pixel, and the bounds (`tools/exp_bounds.py`);
+     walked warps with no live pixel, the share of F alpha's (row, slot,
+     warp) triples whose exp the warp skips, F alpha at (krows, out_cols)
+     (8, 8), (8, 1) and (32, 1) timed in turns against PR 10's alpha path
+     (the same bits), and the bounds (`tools/exp_bounds.py`);
      a failed mxu check names the row, tile and pixel of its largest
      error, whether the tile's skip votes differ and whether the pixel is
      at a cut;
@@ -73,7 +79,9 @@ Phases:
      the launch counts reset before and read after (H, I, J and K must
      launch, A-G not); then H-K against their plain versions on the same
      inputs, twice, bit for bit, the plain versions' and the library
-     calls' ms, and the bounds (`tools/exp_bounds.py`);
+     calls' ms, the card's L2 read rate (`tools/l2_rate.py`), and the
+     bounds (`tools/exp_bounds.py`; H's the larger of its HBM bytes and
+     its 132 MB of record reads at that L2 rate);
  10. a `{"kernels": [...]}` line, the device line, and last the result
      line `{"ok": true, "device": {...}}`.
 
@@ -109,7 +117,8 @@ from sgs_tpu_torch.render.cli import render_sets
 from sgs_tpu_torch.render.pipeline import project_and_shade, render
 from sgs_tpu_torch.render.tiled import bin_gaussians, kernel_args
 from sgs_tpu_torch.tools import (exp_bounds, exp_dma_gather, exp_fwd, exp_fwd2, exp_gather_layout,
-                                 exp_scene, exp_transposed, exp_vmem_gather, gather_inputs)
+                                 exp_scene, exp_transposed, exp_vmem_gather, gather_inputs, l2_rate,
+                                 scan_ablation)
 # the bounds' peak rates (H100 SXM, NVIDIA's data sheet) are defined there
 from sgs_tpu_torch.tools.exp_bounds import bound_ms
 from sgs_tpu_torch.tools.ssim_times import time_ms
@@ -130,6 +139,10 @@ SCRATCH_DIR = ROOT / "build" / "smoke" / "train_scratch"
 METHOD = "ours_15000"
 KERNELS = (flat_raster.KERNEL, ssim_ops.KERNEL, flat_raster.BACKWARD, ssim_ops.BACKWARD,
            exp_forward.KERNEL, gather.KERNEL)
+# built beside the kernels, launched only to measure: the L2 read probe
+# and Kernel F's alpha path as PR 10 had it (phase 8 times it in turns)
+PROBE = l2_rate.KERNEL
+OLD_ALPHA = "alpha_pr10"
 EXP_COUNTS = (exp_forward.E, exp_forward.F, exp_forward.G, gather.H, gather.I, gather.J, gather.K)
 # the full-width training run: 10 steps to the end of a 30k schedule
 TRAIN_FROM, TRAIN_TO = 29_990, 30_000
@@ -173,15 +186,19 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build() -> build.CudaKernel:
+    """Build the kernels, the probe and PR 10's alpha path together;
+    returns the last."""
     t0 = time.perf_counter()
-    build.build_all(list(KERNELS))
+    old_alpha = scan_ablation.variant_kernel(OLD_ALPHA)
+    build.build_all([*KERNELS, PROBE, old_alpha])
     total = time.perf_counter() - t0
-    for k in KERNELS:
+    for k in (*KERNELS, PROBE, old_alpha):
         regs = [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln]
         say(f"[2 build] {k.source.name}: {k.build_seconds if k.build_seconds is not None else 0.0:.2f} s "
             f"(cached: {k.build_seconds is None}) {' | '.join(regs)}")
-    say(f"[2 build] {len(KERNELS)} sources ready in {total:.2f} s")
+    say(f"[2 build] {len(KERNELS)} sources, the probe and PR 10's alpha path ready in {total:.2f} s")
+    return old_alpha
 
 
 def reset_counts() -> None:
@@ -443,6 +460,9 @@ def phase_experiments_small(dev) -> dict:
         raise AssertionError("the packed scene lacks its saturated or its empty tile")
     errs = compare_experiments(pk, exp_forward.KROWS)
     crs, nch, sched, tx = pk["chunk_row_start"], pk["n_chunks"], pk["schedule"], pk["tiles_x"]
+    far = exp_forward.far_records(pk["packed_fm"], pk["row_tile"], tx, pk["num_tiles"])
+    if not 0 < far["far"] < far["slot_warps"]:
+        raise AssertionError(f"F alpha's exp skip takes none or all of the random scene's records: {far}")
     plain = {
         "E": time_cuda(lambda: exp_forward.forward_rows_plain(pk["packed_fm"], crs, nch, sched, tx), 3),
         "F": time_cuda(lambda: exp_forward.ablation_rows_plain(pk["packed_fm"], crs, nch, sched, tx), 3),
@@ -452,7 +472,8 @@ def phase_experiments_small(dev) -> dict:
         f"{int((nch == 0).sum())} empty tiles, the saturated tile {int(nch[sat_tile])} rows: "
         f"E hs/nocp, G hs and F empty/outonly/alpha (krows 8 and 32, out_cols 8 and 1) equal to "
         f"their plain versions bit for bit and repeatable; mxu max |err| E {errs['E']:.2e}, "
-        f"G {errs['G']:.2e} (tolerance {exp_forward.MXU_ATOL}); plain ms at this size: "
+        f"G {errs['G']:.2e} (tolerance {exp_forward.MXU_ATOL}); F alpha's warps skip the exp of "
+        f"{far['far']} of {far['slot_warps']} (row, slot, warp) triples; plain ms at this size: "
         + ", ".join(f"{k} {v:.3f}" for k, v in plain.items()))
     edge = exp_scene.edge_scene(dev)
     e = compare_experiments(edge, exp_forward.KROWS)
@@ -981,12 +1002,33 @@ def phase_timing(dev, errs: dict, launches: dict, views, step: dict) -> list:
 EXP_ATOL, NEAR_CUT_SHARE = 3e-5, 0.01
 
 
-def phase_experiments(dev, errs: dict) -> list:
+def alpha_against_old(sc: dict, dev, old_alpha) -> list:
+    """F alpha at the CLI's (krows, out_cols) on the scene `sc`: the
+    committed kernel and `old_alpha` (PR 10's alpha path, built from
+    `scan_ablation`'s variant) give the same bits, and are timed in turns
+    (committed, old, old, committed, twice over); medians."""
+    out = []
+    for krows, out_cols in ((8, 8), (8, 1), (32, 1)):
+        fn = scan_ablation.runner(sc, "F", "alpha", krows, out_cols)
+        if not torch.equal(scan_ablation.with_kernel(old_alpha, fn), fn()):
+            raise AssertionError(f"F alpha krows {krows} out_cols {out_cols}: PR 10's path gives other bits")
+        new_ms, old_ms = [], []
+        for _ in range(2):
+            new_ms.append(time_ms(fn, 20))
+            old_ms += [scan_ablation.time_with(old_alpha, fn, dev) for _ in range(2)]
+            new_ms.append(time_ms(fn, 20))
+        out.append({"krows": krows, "out_cols": out_cols, "ms": float(np.median(new_ms)),
+                    "pr10_ms": float(np.median(old_ms))})
+    return out
+
+
+def phase_experiments(dev, errs: dict, old_alpha) -> list:
     """The forward-raster experiments at 1920x1080 with 100,000 Gaussians:
     the scene built once and the three CLIs run on it, with the launch
     counts reset before and read after, every variant held to Kernel A;
     then E, F and G in every mode and krows against their plain versions
-    on the same rows, and each kernel's bound (`tools/exp_bounds.py`)."""
+    on the same rows, F alpha against PR 10's alpha path (`old_alpha`),
+    and each kernel's bound (`tools/exp_bounds.py`)."""
     reset_counts()
     t0 = time.perf_counter()
     sc = exp_scene.build_scene(device=dev)
@@ -1050,6 +1092,12 @@ def phase_experiments(dev, errs: dict) -> list:
                                   sc["row_tile"], sc["num_tiles"])
     say(f"[8 experiments] walked warps without a live pixel (hs forms only their t_run): "
         f"{dead['dead_warps']} of {dead['warps_walked']} ({dead['dead_warps'] / dead['warps_walked']:.4f})")
+    far = exp_forward.far_records(fm, sc["row_tile"], tx, sc["num_tiles"])
+    say(f"[8 experiments] F alpha: (row, slot, warp) triples whose exp the warp skips {far['far']} of "
+        f"{far['slot_warps']} ({far['share']:.4f}); device ms, this design against PR 10's alpha path "
+        f"in turns (medians, the same bits): "
+        + ", ".join(f"krows {a['krows']} out_cols {a['out_cols']} {a['ms']:.4f} (PR 10 {a['pr10_ms']:.4f})"
+                    for a in alpha_against_old(sc, dev, old_alpha)))
     say(f"[8 experiments] kernels against plain versions on the 1080p rows (krows "
         f"{' and '.join(map(str, exp_forward.KROWS))}, every mode): E, G hs/nocp and F bit for bit, "
         f"mxu max |err| E {e['E']:.2e} G {e['G']:.2e}; {walked['read']} of {sc['rows_used']} rows "
@@ -1113,8 +1161,16 @@ def phase_gather(dev, errs: dict) -> list:
                "K": lambda: fm16.contiguous()}
     lib_ms = {k: time_ms(f, 20) for k, f in library.items()}
     lib_err = {k: float((f().view_as(want[k]) - want[k]).abs().max()) for k, f in library.items()}
-    bounds = dict(zip("HIJK", exp_bounds.gather_rows((table, ids), (attr, starts), fm16.shape[0])))
+    l2 = l2_rate.l2_read_rate(dev)
+    bounds = dict(zip("HIJK", exp_bounds.gather_rows((table, ids), (attr, starts), fm16.shape[0],
+                                                     l2["bytes_per_s"])))
     ms = {"H": vm["ms"], "I": dm["a_ms"], "J": dm["b_ms"], "K": lay["widths"][16]["ident_ms"]}
+    h = bounds["H"]
+    say(f"[9 gather] L2 read rate {l2['bytes_per_s'] / 1e12:.4f} TB/s (`tools/l2_rate.py`: "
+        f"{l2['bytes']} B from a {l2['buffer_bytes']} B buffer in {l2['ms']:.4f} ms; {l2['card']}); "
+        f"Kernel H's bound restated: its HBM bytes {h['hbm_bound_ms']:.4f} ms, its {h['l2_bytes']} B "
+        f"of record reads at that rate {h['l2_ms']:.4f} ms, so {h['bound_ms']:.4f} ms ({h['bound_term']}); "
+        f"H {ms['H']:.4f} ms reaches {h['bound_ms'] / ms['H']:.1%} of it")
     say("[9 gather] kernels against plain versions at the scripts' sizes (H every step's sum, K from "
         "both layouts at 16 and 8 lanes): bit for bit, repeatable; "
         + ", ".join(f"{k} {ms[k]:.4f} ms (bound {bounds[k]['bound_ms']:.4f}, {bounds[k]['bound_by']}, "
@@ -1135,7 +1191,7 @@ def main(device: str = "cuda") -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     dev = torch.device(device)
-    phase_build()
+    old_alpha = phase_build()
     errs = phase_kernels(dev)
     phase_slice(dev)
     model = flagship_model(dev)
@@ -1147,7 +1203,7 @@ def main(device: str = "cuda") -> int:
     errs["D"] = max(errs["D"], step["D"])
     phase_scratch(dev)
     kernels = phase_timing(dev, errs, train["launches"], views, step)
-    kernels += phase_experiments(dev, errs)
+    kernels += phase_experiments(dev, errs, old_alpha)
     kernels += phase_gather(dev, errs)
     say(f"[10 done] chip_smoke wall {time.perf_counter() - t_start:.2f} s")
     say(json.dumps({"kernels": kernels}))

@@ -9,7 +9,8 @@
 // what the TPU leaves open: sgs_tpu_torch/ops/exp_forward.py.
 //
 // Design. One thread per pixel of a 16x16 tile (256-thread blocks), the
-// per-pixel state in registers. The TPU grid runs in order on one core and
+// per-pixel state in registers; F alpha two pixels a thread (128-thread
+// blocks, see "F alpha" below). The TPU grid runs in order on one core and
 // carries the state in scratch from row to row; here a block walks each of
 // its tiles' rows in order.
 //   - Persistent blocks: as many blocks as the card holds at once (the
@@ -69,11 +70,13 @@
 // 3 KiB tile table, blocks per SM.
 //   E hs    165, 0 B, 18,432 / 73,728 B, 1     G hs   250, 0 B, 24,576 / 98,304 B, 1
 //   E mxu   241, 0 B, 38,912 / 94,208 B, 1     G mxu  255, 0 B, 45,056 / 118,784 B, 1
-//   E nocp  126, 0 B, 18,432 / 73,728 B, 2     F alpha 117/115, 0 B, 12,288 / 49,152 B, 2
-//   F outonly 40, 0 B, 0 (2 KiB table), 6      F empty 4, 0 B, 0, 8
+//   E nocp  126, 0 B, 18,432 / 73,728 B, 2     F outonly 40, 0 B, 0 (2 KiB table), 6
+//   F empty 4, 0 B, 0, 8
+//   F alpha (128 threads) 96, 0 B, 12,800 / 49,664 B (with the far thresholds), 5 / 4
 // The 64 alphas and 64 products of a pixel hold 128 registers, so the
 // scans run one block of 8 warps per SM and are bound by instruction
-// issue (PERF.md gives the SASS counts and the issue share). Keeping the
+// issue (PERF.md gives the SASS counts and the issue share); so is F
+// alpha, at 20 warps per SM (krows 8). Keeping the
 // alphas in shared memory to fit two blocks spilled at 128 registers and
 // was slower.
 
@@ -95,6 +98,22 @@ constexpr float kAlphaMin = (float)(1.0 / 255.0);
 constexpr float kEps = 1e-4f;
 
 enum Mode { kHs = 0, kMxu = 1, kNocp = 2, kEmpty = 3, kOutOnly = 4, kAlpha = 5 };
+
+// F alpha's design choices (tools/scan_ablation.py times each undone):
+constexpr int kAlphaPix = 2;           // pixels per thread: one column, two neighbouring rows
+constexpr bool kAlphaPrescale = true;  // conic a and c scaled by -0.5 in the ring, once per row
+constexpr bool kAlphaSkip = true;      // no exp for a record far from all of a warp's pixels
+constexpr int kAlphaMinBlocks = 5;     // blocks per SM ptxas must fit (at most 102 registers)
+// How far below ln(kAlphaMin / opacity) a power must lie to be skipped:
+// it covers the rounding of the threshold (a few 1e-7 relative) and of
+// expf (2 ulp) many times over.
+constexpr float kFarMargin = 1e-3f;
+
+template <int kMode>
+__host__ __device__ constexpr int pixels_per_thread() { return kMode == kAlpha ? kAlphaPix : 1; }
+
+template <int kMode>
+__host__ __device__ constexpr int block_threads() { return kPix / pixels_per_thread<kMode>(); }
 
 // What a mode stages of a row: field-major (E, F) the first kFields
 // fields, contiguous; instance-major (G) float4s 0-2 of each record
@@ -139,12 +158,184 @@ __device__ __forceinline__ const float* rgb_channel(const float* row, int c) {
   return ch;
 }
 
+__device__ __forceinline__ float alpha_from(float power, float op) {
+  const float alpha = fminf(kAlphaMax, op * expf(power));
+  return (power <= 0.0f && alpha >= kAlphaMin) ? alpha : 0.0f;
+}
+
 __device__ __forceinline__ float alpha_of(const Rec& r, float fx, float fy) {
   const float dx = r.mx - fx;
   const float dy = r.my - fy;
-  const float power = -0.5f * (r.ca * dx * dx + r.cc * dy * dy) - r.cb * dx * dy;
-  const float alpha = fminf(kAlphaMax, r.op * expf(power));
-  return (power <= 0.0f && alpha >= kAlphaMin) ? alpha : 0.0f;
+  return alpha_from(-0.5f * (r.ca * dx * dx + r.cc * dy * dy) - r.cb * dx * dy, r.op);
+}
+
+// ---------------------------------------------------------------- F alpha
+//
+// Per row and pixel F sums the 64 alphas by the halving tree (v[i] +
+// v[i + h], h = 32 .. 1), bit for bit as the plain version. It is bound
+// by instruction issue, so the design cuts instructions per pair:
+//   - two pixels a thread, (x, y) and (x, y + 1): dx, the conic a term
+//     and cb dx are formed once for both, and every shared load serves
+//     both (128-thread blocks);
+//   - -0.5 conic a and -0.5 conic c in the ring: ((-0.5 a) dx) dx +
+//     ((-0.5 c) dy) dy has the bits of -0.5 (a dx dx + c dy dy) (a power
+//     of two scales every rounding alike), one multiply fewer per pair;
+//   - the records in groups of 4 (m = 0 .. 15: records 4m .. 4m + 3),
+//     each field of a group one 16-byte broadcast load (PR 10's loads of
+//     single records compiled to those too). A group holds one
+//     leaf of each of the tree's four subtrees by k mod 4 (the levels h =
+//     32 .. 4 combine leaves of one residue, h = 2 and 1 the four
+//     subtrees), so the groups run in bit-reversed order and a binary
+//     counter adds each subtree's nodes as soon as both halves exist: a
+//     handful of partial sums live, not 64 alphas;
+//   - a warp computes no exp for a record whose power is below its far
+//     threshold ln(kAlphaMin / opacity) - kFarMargin at all of its 64
+//     pixels: there op * expf(power) < kAlphaMin for certain, so the
+//     alpha is 0, as the full expression gives (the vote is warp-uniform;
+//     the 0 goes into the tree in its place). The thresholds are formed
+//     once per row into a two-row buffer past the ring;
+//   - the 16 groups as a loop of 4 passes of 4 (unrolled, the row's code
+//     overflowed the instruction cache), and a launch bound of
+//     kAlphaMinBlocks blocks per SM.
+
+// The far threshold of a record's power, formed once per row.
+__device__ __forceinline__ float far_power(float op) { return logf(kAlphaMin / op) - kFarMargin; }
+
+// After thread t's copies of a row have landed: each float4 v it copied
+// (field v / 16, records 4 (v % 16) .. + 3; `fetch_row`) scaled by -0.5
+// if it is conic a or c, and from the opacities the records' far
+// thresholds, written to `far` (64 floats; two of them alternate by row,
+// so that a row's are written only after every thread is past the row
+// two before). The barrier that follows publishes both.
+template <int kThreads>
+__device__ __forceinline__ void prepare_alpha(float4* slot, float4* far, int t) {
+  constexpr int kVecs = Stage<kAlpha, true>::kVecs;
+#pragma unroll
+  for (int j = 0; j < (kVecs + kThreads - 1) / kThreads; ++j) {
+    const int v = t + j * kThreads;
+    const int field = v / (kChunk / 4);
+    if (kAlphaPrescale && (field == 2 || field == 4)) {
+      const float4 q = slot[v];
+      slot[v] = make_float4(-0.5f * q.x, -0.5f * q.y, -0.5f * q.z, -0.5f * q.w);
+    }
+    if (kAlphaSkip && field == 5) {
+      const float4 op = slot[v];
+      far[v % (kChunk / 4)] = make_float4(far_power(op.x), far_power(op.y), far_power(op.z), far_power(op.w));
+    }
+  }
+}
+
+// Field f of records 4m .. 4m + 3 of a field-major row, one 16-byte load
+// (four scalar loads compile to the same LDS.128).
+__device__ __forceinline__ void field4(const float* row, int f, int m, float (&v)[4]) {
+  const float4 q = reinterpret_cast<const float4*>(row)[f * (kChunk / 4) + m];
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
+// The alphas of records 4m .. 4m + 3 at the thread's kPP pixels (`far`:
+// the row's far thresholds).
+template <int kPP>
+__device__ __forceinline__ void alpha_group(const float* row, const float* far_row, int m, float fx,
+                                            const float (&fy)[kPP], float (&x)[4][kPP]) {
+  float mx[4], my[4], ca[4], cb[4], cc[4], op[4], far[4];
+  field4(row, 0, m, mx);
+  field4(row, 1, m, my);
+  field4(row, 2, m, ca);
+  field4(row, 3, m, cb);
+  field4(row, 4, m, cc);
+  field4(row, 5, m, op);
+  if constexpr (kAlphaSkip) field4(far_row, 0, m, far);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float dx = mx[c] - fx;
+    const float ax = ca[c] * dx * dx;
+    const float bx = cb[c] * dx;
+    float power[kPP];
+    bool is_far = true;
+#pragma unroll
+    for (int i = 0; i < kPP; ++i) {
+      const float dy = my[c] - fy[i];
+      const float q = ax + cc[c] * dy * dy;
+      power[i] = (kAlphaPrescale ? q : -0.5f * q) - bx * dy;
+      if constexpr (kAlphaSkip) is_far = is_far && power[i] < far[c];
+    }
+    if (kAlphaSkip && __all_sync(0xffffffffu, is_far)) {
+#pragma unroll
+      for (int i = 0; i < kPP; ++i) x[c][i] = 0.0f;
+    } else {
+#pragma unroll
+      for (int i = 0; i < kPP; ++i) x[c][i] = alpha_from(power[i], op[c]);
+    }
+  }
+}
+
+// The counter's levels 0 and 1 over the four groups kLo = 0 .. 3 of one
+// pass (processing order 4 hi + kLo): while bit kL of kLo is set, the node
+// stored at level kL is the left half of x; the pass's level-2 node goes
+// to y.
+template <int kLo, int kL, int kPP>
+__device__ __forceinline__ void carry(float (&node)[2][4][kPP], float (&x)[4][kPP], float (&y)[4][kPP]) {
+  if constexpr (kL < 2 && ((kLo >> kL) & 1)) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int i = 0; i < kPP; ++i) x[c][i] = node[kL][c][i] + x[c][i];
+    carry<kLo, kL + 1>(node, x, y);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int i = 0; i < kPP; ++i) {
+        if constexpr (kL == 2) y[c][i] = x[c][i];
+        else node[kL][c][i] = x[c][i];
+      }
+  }
+}
+
+// The four groups of pass hi, m = bitrev(4 hi + kLo) = bitrev2(kLo) * 4 +
+// m_hi (m_hi = bitrev2(hi)), into the pass's level-2 node y.
+template <int kLo, int kPP>
+__device__ __forceinline__ void pass_groups(const float* row, const float* far_row, int m_hi, float fx,
+                                            const float (&fy)[kPP], float (&node)[2][4][kPP], float (&y)[4][kPP]) {
+  if constexpr (kLo < 4) {
+    float x[4][kPP];
+    alpha_group<kPP>(row, far_row, (((kLo & 1) << 3) | ((kLo & 2) << 1)) | m_hi, fx, fy, x);
+    carry<kLo, 0>(node, x, y);
+    pass_groups<kLo + 1>(row, far_row, m_hi, fx, fy, node, y);
+  }
+}
+
+// The halving-tree sum of a row's 64 alphas at each of the kPP pixels: four
+// passes hi = 0 .. 3 in a loop (unrolled, the row's code overflowed the
+// instruction cache and ran slower than PR 10's), each four groups
+// unrolled; the passes' level-2 nodes combine at levels 2 and 3 by the
+// bits of hi (warp-uniform branches), then the four subtrees' roots.
+template <int kPP>
+__device__ __forceinline__ void alpha_row(const float* row, const float* far_row, float fx, const float (&fy)[kPP],
+                                          float (&sum)[kPP]) {
+  float lvl2[4][kPP], lvl3[4][kPP], root[4][kPP];
+#pragma unroll 1
+  for (int hi = 0; hi < 4; ++hi) {
+    float node[2][4][kPP], y[4][kPP];
+    pass_groups<0>(row, far_row, ((hi & 1) << 1) | (hi >> 1), fx, fy, node, y);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int i = 0; i < kPP; ++i) {
+        if (!(hi & 1)) {
+          lvl2[c][i] = y[c][i];
+        } else if (!(hi & 2)) {
+          lvl3[c][i] = lvl2[c][i] + y[c][i];
+        } else {
+          root[c][i] = lvl3[c][i] + (lvl2[c][i] + y[c][i]);
+        }
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < kPP; ++i) sum[i] = (root[0][i] + root[2][i]) + (root[1][i] + root[3][i]);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -393,19 +584,23 @@ __device__ __forceinline__ void advance(Cursor& c, const int* s_n, int rounds) {
   settle(c, s_n, rounds);
 }
 
-// Thread p's 16-byte copy of row r into a ring slot (E, F: float4 p of
-// the row; G: float4 p % 3 of record p / 3).
+// Thread t's 16-byte copies of row r into a ring slot: float4s v = t,
+// t + kThreads, ... of what the mode stages (E, F: float4 v of the row;
+// G: float4 v % 3 of record v / 3).
 template <int kMode, bool kFieldMajor>
-__device__ __forceinline__ void fetch_row(float4* slot, const float* __restrict__ packed, int r, int p) {
+__device__ __forceinline__ void fetch_row(float4* slot, const float* __restrict__ packed, int r, int t) {
   constexpr int kVecs = Stage<kMode, kFieldMajor>::kVecs;
-  if (p < kVecs) {
-    const float4* src = reinterpret_cast<const float4*>(packed + (int64_t)r * kRowFloats);
-    cp_async16(slot + p, src + (kFieldMajor ? p : (p / 3) * (kRec / 4) + p % 3));
+  constexpr int kThreads = block_threads<kMode>();
+  const float4* src = reinterpret_cast<const float4*>(packed + (int64_t)r * kRowFloats);
+#pragma unroll
+  for (int j = 0; j < (kVecs + kThreads - 1) / kThreads; ++j) {
+    const int v = t + j * kThreads;
+    if (v < kVecs) cp_async16(slot + v, src + (kFieldMajor ? v : (v / 3) * (kRec / 4) + v % 3));
   }
 }
 
 template <int kMode, bool kFieldMajor, int kRing, int kOutCols>
-__global__ void __launch_bounds__(kPix, 1)
+__global__ void __launch_bounds__(block_threads<kMode>(), kMode == kAlpha ? kAlphaMinBlocks : 1)
 exp_forward_kernel(const float* __restrict__ packed,  // (rows, 1024) records
                    const int32_t* __restrict__ crs,   // (T,) first row of each tile
                    const int32_t* __restrict__ nch,   // (T,) rows of each tile
@@ -415,33 +610,41 @@ exp_forward_kernel(const float* __restrict__ packed,  // (rows, 1024) records
 {
   if constexpr (kMode == kEmpty) return;
   using S = Stage<kMode, kFieldMajor>;
+  constexpr int kPP = pixels_per_thread<kMode>();
+  constexpr int kThreads = block_threads<kMode>();
   static_assert((kRing & (kRing - 1)) == 0 && kRing >= 2, "the ring's rows are a power of two");
-  static_assert(S::kVecs <= kPix, "one 16-byte copy per thread and row");
   extern __shared__ float4 smem4[];
   float4* ring = smem4;
+  // past the ring: mxu's z parts, or F alpha's far thresholds of two rows
   float* s_z = reinterpret_cast<float*>(smem4 + (S::kReads ? kRing * S::kVecs : 0));
   __shared__ int s_tile[kMaxTiles], s_r0[kMaxTiles], s_n[kMaxTiles];
-  const int p = threadIdx.x;
+  const int t = threadIdx.x;
   const int blocks = gridDim.x;
   const int b = blockIdx.x;
-  float st[kState];
-  initial_state<kMode>(st);
+  // the thread's pixels: column t % 16 of rows (t / 16) kPP + i
+  int pix[kPP];
+#pragma unroll
+  for (int i = 0; i < kPP; ++i) pix[i] = ((t / kTile) * kPP + i) * kTile + t % kTile;
+  float st[kPP][kState];
+#pragma unroll
+  for (int i = 0; i < kPP; ++i) initial_state<kMode>(st[i]);
 
   // rows past the last tile's (no tile's): the initial state
   for (int r = crs[num_tiles - 1] + nch[num_tiles - 1] + b; r < max_rows; r += blocks)
-    write_state<kFieldMajor, kOutCols>(out, r, p, st);
+#pragma unroll
+    for (int i = 0; i < kPP; ++i) write_state<kFieldMajor, kOutCols>(out, r, pix[i], st[i]);
 
   // this block's tiles: schedule positions b, 2G - 1 - b, 2G + b, ...
   const int rounds = (num_tiles + blocks - 1) / blocks;
-  for (int j = p; j < rounds; j += kPix) {
+  for (int j = t; j < rounds; j += kThreads) {
     const int i = j * blocks + ((j & 1) ? blocks - 1 - b : b);
-    int t = 0, r0 = 0, n = 0;
+    int tile = 0, r0 = 0, n = 0;
     if (i < num_tiles) {
-      t = schedule[i];
-      r0 = crs[t];
-      n = nch[t];
+      tile = schedule[i];
+      r0 = crs[tile];
+      n = nch[tile];
     }
-    s_tile[j] = t;
+    s_tile[j] = tile;
     s_r0[j] = r0;
     s_n[j] = n;
   }
@@ -453,44 +656,50 @@ exp_forward_kernel(const float* __restrict__ packed,  // (rows, 1024) records
   if constexpr (S::kReads) {  // rows 0 .. krows - 2 in flight
     for (int q = 0; q < kRing - 1; ++q) {
       if (pc.j < rounds) {
-        fetch_row<kMode, kFieldMajor>(ring + q * S::kVecs, packed, s_r0[pc.j] + pc.row, p);
+        fetch_row<kMode, kFieldMajor>(ring + q * S::kVecs, packed, s_r0[pc.j] + pc.row, t);
         advance(pc, s_n, rounds);
       }
       cp_async_commit();
     }
   }
-  float fx = 0.0f, fy = 0.0f;
+  float fx = 0.0f, fy[kPP] = {};
   for (int q = 0; cc.j < rounds; ++q) {
     const int r = s_r0[cc.j] + cc.row;
     if (cc.row == 0) {
       const int tile = s_tile[cc.j];
-      fx = (float)((tile % tiles_x) * kTile) + (float)(p % kTile);
-      fy = (float)((tile / tiles_x) * kTile) + (float)(p / kTile);
-      initial_state<kMode>(st);
+      fx = (float)((tile % tiles_x) * kTile) + (float)(t % kTile);
+#pragma unroll
+      for (int i = 0; i < kPP; ++i) {
+        fy[i] = (float)((tile / tiles_x) * kTile) + (float)(pix[i] / kTile);
+        initial_state<kMode>(st[i]);
+      }
     }
-    const float4* slot = ring + (q & (kRing - 1)) * S::kVecs;
+    float4* slot = ring + (q & (kRing - 1)) * S::kVecs;
+    float* far_row = s_z + (q & 1) * kChunk;
     bool go = false;
     if constexpr (S::kReads) {
       cp_async_wait<kRing - 2>();  // this thread's copies of row q have landed
+      if constexpr (kMode == kAlpha) prepare_alpha<kThreads>(slot, reinterpret_cast<float4*>(far_row), t);
       // every thread's copies visible, every thread done with row q - 1
-      go = __syncthreads_or(st[3] >= kEps);
+      go = __syncthreads_or(st[0][3] >= kEps);
       if (pc.j < rounds) {  // row q + krows - 1, into the slot of row q - 1
         fetch_row<kMode, kFieldMajor>(ring + ((q + kRing - 1) & (kRing - 1)) * S::kVecs, packed,
-                                      s_r0[pc.j] + pc.row, p);
+                                      s_r0[pc.j] + pc.row, t);
         advance(pc, s_n, rounds);
       }
       cp_async_commit();
     }
     const float* rowf = reinterpret_cast<const float*>(slot);
     if constexpr (kMode == kAlpha) {
-      float v[kChunk];
+      float v[kPP];
+      alpha_row<kPP>(rowf, far_row, fx, fy, v);
 #pragma unroll
-      for (int k = 0; k < kChunk; ++k) v[k] = alpha_of(load_rec<true>(rowf, k), fx, fy);
-      st[0] = st[0] + tree_sum(v);
+      for (int i = 0; i < kPP; ++i) st[i][0] = st[i][0] + v[i];
     } else if constexpr (kMode == kHs || kMode == kMxu || kMode == kNocp) {
-      if (go) composite_row<kMode, kFieldMajor>(rowf, r, p, fx, fy, st, s_z);
+      if (go) composite_row<kMode, kFieldMajor>(rowf, r, t, fx, fy[0], st[0], s_z);
     }
-    write_state<kFieldMajor, kOutCols>(out, r, p, st);
+#pragma unroll
+    for (int i = 0; i < kPP; ++i) write_state<kFieldMajor, kOutCols>(out, r, pix[i], st[i]);
     advance(cc, s_n, rounds);
   }
   if constexpr (S::kReads) cp_async_wait<0>();
@@ -499,7 +708,8 @@ exp_forward_kernel(const float* __restrict__ packed,  // (rows, 1024) records
 template <int kMode, bool kFieldMajor, int kRing>
 constexpr int smem_bytes() {
   using S = Stage<kMode, kFieldMajor>;
-  return (S::kReads ? kRing * S::kVecs * 16 : 0) + (kMode == kMxu ? kPix * kZStride * 4 : 0);
+  constexpr int kExtra = kMode == kMxu ? kPix * kZStride * 4 : kMode == kAlpha && kAlphaSkip ? 2 * kChunk * 4 : 0;
+  return (S::kReads ? kRing * S::kVecs * 16 : 0) + kExtra;
 }
 
 // Blocks of one instantiation resident per SM (the occupancy calculator),
@@ -511,7 +721,7 @@ int resident_blocks() {
     auto kernel = exp_forward_kernel<kMode, kFieldMajor, kRing, kOutCols>;
     constexpr int kSmem = smem_bytes<kMode, kFieldMajor, kRing>();
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kPix, kSmem);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block_threads<kMode>(), kSmem);
     if (e != cudaSuccess) return -(int)e;
     if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
   }
@@ -532,7 +742,7 @@ int launch(const float* packed, const int32_t* crs, const int32_t* nch, const in
   int grid = per_sm * sms < num_tiles ? per_sm * sms : num_tiles;
   if (grid < (num_tiles + kMaxTiles - 1) / kMaxTiles) grid = (num_tiles + kMaxTiles - 1) / kMaxTiles;
   exp_forward_kernel<kMode, kFieldMajor, kRing, kOutCols>
-      <<<grid, kPix, smem_bytes<kMode, kFieldMajor, kRing>(), stream>>>(
+      <<<grid, block_threads<kMode>(), smem_bytes<kMode, kFieldMajor, kRing>(), stream>>>(
           packed, crs, nch, schedule, num_tiles, tiles_x, max_rows, out);
   return (int)cudaGetLastError();
 }

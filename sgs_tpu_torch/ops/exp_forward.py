@@ -100,6 +100,12 @@ TF32_FLOPS_PER_PAIR = {"mxu": CHUNK + 1}
 # f32 fields of each slot a mode reads: x, y, conic a, b, c, opacity, and
 # the colour for the scans. `empty` and `outonly` read no record.
 FIELDS = {"hs": 9, "mxu": 9, "nocp": 9, "alpha": 6, "outonly": 0, "empty": 0}
+# F alpha's exp skip (`csrc/exp_forward.cu`, kFarMargin, kAlphaPix): a
+# warp computes no exp for a record whose power lies below
+# ln(ALPHA_MIN / opacity) - FAR_MARGIN at all of its ALPHA_WARP_PIXELS
+# pixels (32 threads of 2 pixels: 4 rows of the tile).
+FAR_MARGIN = 1e-3
+ALPHA_WARP_PIXELS = 64
 
 
 def _check(packed, crs, nch, schedule, field_major_rows: bool, krows: int):
@@ -164,6 +170,29 @@ def dead_warps(rows_out, row_first, row_tile, num_tiles: int) -> dict:
     n_walked = int(walked.sum())
     return {"rows_walked": n_walked, "warps_walked": n_walked * (TILE_PIXELS // 32),
             "dead_warps": int(dead.sum())}
+
+
+def far_records(packed_fm, row_tile, tiles_x: int, num_tiles: int, warp_pixels: int = ALPHA_WARP_PIXELS,
+                rows_per_step: int = 512) -> dict:
+    """F alpha's exp skip on field-major rows: of the (row, slot, warp)
+    triples of the used rows (`row_tile` < num_tiles), `far`, those where
+    every pixel of the warp (`warp_pixels` consecutive pixels) has power
+    below the slot's far threshold, so that the kernel computes no exp;
+    counted with the plain version's power, in steps of `rows_per_step`
+    rows."""
+    recs = packed_fm.view(-1, REC, CHUNK)
+    used = torch.nonzero(row_tile < num_tiles)[:, 0]
+    far = 0
+    for i in range(0, used.numel(), rows_per_step):
+        rr = used[i:i + rows_per_step]
+        px, py = _pixels(row_tile[rr].long(), tiles_x)
+        rec = recs[rr]
+        power = _power(rec, px, py)
+        threshold = torch.log(torch.full_like(rec[:, 5], ALPHA_MIN) / rec[:, 5]) - FAR_MARGIN
+        is_far = power < threshold[:, None, :]
+        far += int(is_far.view(rr.numel(), TILE_PIXELS // warp_pixels, warp_pixels, CHUNK).all(dim=2).sum())
+    total = used.numel() * CHUNK * (TILE_PIXELS // warp_pixels)
+    return {"far": far, "slot_warps": total, "share": far / max(total, 1)}
 
 
 def last_rows(crs, nch, max_rows: int) -> torch.Tensor:
@@ -308,14 +337,19 @@ def _pixels(tiles, tiles_x: int):
 def _alpha(rec, px, py):
     """rec (L, REC, CHUNK) field-major rows, px/py (L, 256): alpha (L, 256,
     CHUNK) with the cut-offs applied, and the clamped alpha before them."""
-    mx, my = rec[:, 0, None, :], rec[:, 1, None, :]
-    ca, cb, cc, op = rec[:, 2, None, :], rec[:, 3, None, :], rec[:, 4, None, :], rec[:, 5, None, :]
-    dx = mx - px[:, :, None]
-    dy = my - py[:, :, None]
-    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-    alpha = torch.clamp_max(op * torch.exp(power), ALPHA_MAX)
+    power = _power(rec, px, py)
+    alpha = torch.clamp_max(rec[:, 5, None, :] * torch.exp(power), ALPHA_MAX)
     a = torch.where((power <= 0.0) & (alpha >= ALPHA_MIN), alpha, 0.0)
     return a, torch.where(power <= 0.0, alpha, float("inf"))
+
+
+def _power(rec, px, py):
+    """The Gaussian's exponent at each pixel and slot, (L, 256, CHUNK)."""
+    mx, my = rec[:, 0, None, :], rec[:, 1, None, :]
+    ca, cb, cc = rec[:, 2, None, :], rec[:, 3, None, :], rec[:, 4, None, :]
+    dx = mx - px[:, :, None]
+    dy = my - py[:, :, None]
+    return -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
 
 
 def _tree_sum(v):

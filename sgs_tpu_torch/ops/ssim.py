@@ -59,11 +59,19 @@ OPS_PER_PIXEL_BWD = 500
 C1, C2 = 0.01**2, 0.03**2
 
 
+# The normalised 1-D window (WINDOW taps, SIGMA 1.5) as the f32 values of
+# `sgs_tpu/ops/ssim.py::_gaussian_window(11, 1.5)`, bit for bit. Computing
+# it here (exp, then the f32 sum and division) lands 1 ulp below in 7 of
+# the 11 taps, and a float64 window rounded to f32 can be 2 ulp off; the
+# SSIM map's E[x^2] - mu^2 cancels enough to show either in the mean.
+WINDOW_TAPS = tuple(float.fromhex(h) for h in (
+    "0x1.0d957p-10", "0x1.f1fe04p-8", "0x1.26eb18p-5", "0x1.bff1p-4", "0x1.b43c4p-3", "0x1.106562p-2",
+    "0x1.b43c4p-3", "0x1.bff1p-4", "0x1.26eb18p-5", "0x1.f1fe04p-8", "0x1.0d957p-10"))
+
+
 def gaussian_window() -> torch.Tensor:
-    """The normalised 1-D window in f32, computed on the CPU."""
-    xs = torch.arange(WINDOW, dtype=torch.float32)
-    g = torch.exp(-((xs - WINDOW // 2) ** 2) / (2.0 * SIGMA**2))
-    return g / torch.sum(g)
+    """The normalised 1-D window in f32 on the CPU (`WINDOW_TAPS`)."""
+    return torch.tensor(WINDOW_TAPS, dtype=torch.float32)
 
 
 @functools.lru_cache(maxsize=1)
@@ -118,8 +126,13 @@ def ordered_mean(ssim_map: torch.Tensor) -> torch.Tensor:
 
 
 def ssim_plain(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
-    """Mean SSIM of a (C, H, W) pair, separable pass along W then H, the
-    mean summed in Kernel B's order (`ordered_mean`)."""
+    """Mean SSIM of a (C, H, W) pair, the mean of `ssim_map` summed in
+    Kernel B's order (`ordered_mean`)."""
+    return ordered_mean(ssim_map(img1, img2))
+
+
+def ssim_map(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """The (C, H, W) SSIM map of a pair, separable pass along W then H."""
     w1d = gaussian_window().to(img1.device)
 
     def conv(v):
@@ -130,10 +143,9 @@ def ssim_plain(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     sigma1_sq = conv(img1 * img1) - mu1_sq
     sigma2_sq = conv(img2 * img2) - mu2_sq
     sigma12 = conv(img1 * img2) - mu1_mu2
-    ssim_map = ((2 * mu1_mu2 + C1) * (2 * sigma12 + C2)) / (
+    return ((2 * mu1_mu2 + C1) * (2 * sigma12 + C2)) / (
         (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2)
     )
-    return ordered_mean(ssim_map)
 
 
 def _check_pair(x: torch.Tensor, y: torch.Tensor, fn: str) -> None:

@@ -29,7 +29,12 @@ table rows they name once and writes every step's (128, 16) partial; I
 reads the packed rows of its steps and writes the partials; J reads the
 rows its windows cover once, the starts, and writes one (128, 16) sum; K
 reads and writes the table. H adds once per gathered element, I and J
-twice (rec + rec, then acc +=).
+twice (rec + rec, then acc +=). H's bound has a second term: it reads
+every gathered 64-byte record once, 132 MB at the script's size, from a
+table that only the L2 can hold (6.4 MB, 28 times a block's shared
+memory), so those bytes over the L2 read rate bound it too. The rate is
+the card's, measured by `tools/l2_rate.py` (`chip_smoke.py` passes it);
+without the card it is L2_READ_BYTES_PER_S below.
 """
 
 from __future__ import annotations
@@ -44,6 +49,11 @@ from sgs_tpu_torch.tools import exp_scene, gather_inputs
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
+# The L2 read rate before the card's measurement: the 5,120 bytes per
+# clock of L2 read bandwidth that NVIDIA's A100 white paper states (the
+# H100 data sheet gives no L2 figure) at the H100 SXM's 1,980 MHz boost
+# clock.
+L2_READ_BYTES_PER_S = 5120 * 1.98e9
 F32 = 4
 REC = rows_ops.REC
 
@@ -84,15 +94,25 @@ def forward(where: str, what: str, c: dict, mode: str, out_cols: int = 8) -> dic
                  slots_read=c["read"] * rows_ops.CHUNK, P=c["P"])
 
 
-def vmem_gather_row(table, ids) -> dict:
+def vmem_gather_row(table, ids, l2_bytes_per_s: float = L2_READ_BYTES_PER_S) -> dict:
     """Kernel H: the ids of the grid steps and the table rows they name in,
-    every step's partial out; one add per gathered element."""
+    every step's partial out; one add per gathered element. The bound is
+    the larger of that (`hbm_bound_ms`) and the gathered records' bytes
+    (`l2_bytes`, each record once per id) at `l2_bytes_per_s` (`l2_ms`);
+    `bound_term` says which."""
     steps = gather_ops.grid_steps(ids.numel() // gather_ops.CHUNK)
     n_ids = steps * gather_ops.KROWS * gather_ops.CHUNK
     used = torch.unique(ids[:n_ids].clamp(0, table.shape[0] - 1)).numel()
     out = steps * gather_ops.CHUNK * REC * F32
-    return fixed("vector gather from a VMEM table, summed (Kernel H)", "scripts/exp_vmem_gather.py:46",
-                 n_ids * F32 + used * REC * F32 + out, n_ids * REC, table_rows_read=used)
+    row = fixed("vector gather from a VMEM table, summed (Kernel H)", "scripts/exp_vmem_gather.py:46",
+                n_ids * F32 + used * REC * F32 + out, n_ids * REC, table_rows_read=used)
+    l2_bytes = n_ids * REC * F32
+    l2_ms = l2_bytes / l2_bytes_per_s * 1e3
+    row.update(hbm_bound_ms=row["bound_ms"], l2_bytes=l2_bytes, l2_bytes_per_s=l2_bytes_per_s, l2_ms=l2_ms,
+               bound_term="hbm")
+    if l2_ms > row["bound_ms"]:
+        row.update(bound_ms=l2_ms, bound_by="bytes", bound_term="l2")
+    return row
 
 
 def packed_sum_row(packed_rows: int) -> dict:
@@ -121,12 +141,14 @@ def identity_row(src: int, rec: int) -> dict:
                  "scripts/exp_gather_layout.py:39", 2 * src * rec * F32, 0)
 
 
-def gather_rows(vmem=None, dma=None, src: int = gather_ops.SRC) -> list:
+def gather_rows(vmem=None, dma=None, src: int = gather_ops.SRC,
+                l2_bytes_per_s: float = L2_READ_BYTES_PER_S) -> list:
     """The gather kernels' rows on `vmem` (table, ids) and `dma` (attr,
-    starts), made at the scripts' sizes on the CPU when not given."""
+    starts), made at the scripts' sizes on the CPU when not given; H's L2
+    term at `l2_bytes_per_s`."""
     table, ids = vmem if vmem is not None else gather_inputs.vmem_inputs()
     attr, starts = dma if dma is not None else gather_inputs.dma_inputs()
-    return [vmem_gather_row(table, ids), packed_sum_row(starts.numel() * gather_ops.CHUNK),
+    return [vmem_gather_row(table, ids, l2_bytes_per_s), packed_sum_row(starts.numel() * gather_ops.CHUNK),
             dma_gather_row(attr, starts)] + [identity_row(src, rec) for rec in gather_ops.WIDTHS]
 
 

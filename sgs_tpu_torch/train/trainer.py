@@ -18,7 +18,9 @@ from a `torch.Generator` seeded with `seed`.
 
 Not ported, each raising where the JAX trainer would use it: multi-device
 training (--parallel dp|hybrid), the rasterizer choices other than the
-tiled one, the network viewer and tensorboard.
+tiled one and the network viewer. The port does not import tensorboard:
+it prints the line the JAX trainer prints when tensorboard is missing
+("Tensorboard not available: not logging progress") and trains on.
 """
 
 from __future__ import annotations
@@ -48,6 +50,8 @@ from sgs_tpu_torch.utils.config import (
 GROW_FREE_FRACTION = 0.2
 GROW_FACTOR = 2.0
 BUCKET_SAMPLE = 4  # cameras the JAX trainer samples to size its buckets
+# what `sgs_tpu/train/trainer.py::_make_tb_writer` prints without tensorboard
+NO_TENSORBOARD = "Tensorboard not available: not logging progress"
 
 
 def grow_state(state: TrainState, new_capacity: int) -> TrainState:
@@ -98,6 +102,7 @@ def training(dataset: ModelParams, opt: OptimizationParams, pipe: PipelineParams
     save_cfg_args(model_path, dataset)
     tsv = open(os.path.join(model_path, "losses.tsv"), "w")
     tsv.write("iteration\ttest_l1\ttest_psnr\tnum_gaussians\n")
+    print(NO_TENSORBOARD)
 
     model = scene.pool
     state = TrainState(model=model, adam=AdamState.init(model.params()),

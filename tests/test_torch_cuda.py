@@ -261,3 +261,24 @@ def test_identity_kernel_matches_plain(dev, rows, rec):
         assert g.K.launches == before + 1
         assert got.is_contiguous() and torch.equal(got, g.layout_identity(src))
         assert torch.equal(got, x)
+
+
+def test_alpha_skip_takes_some_records(dev):
+    """The random scene exercises both sides of F alpha's exp skip (the
+    ablation test above holds the kernel to its plain version on it)."""
+    from sgs_tpu_torch.ops import exp_forward as ef
+
+    sc = _exp_scene(dev)
+    far = ef.far_records(sc["packed_fm"], sc["row_tile"], sc["tiles_x"], sc["num_tiles"])
+    assert 0 < far["far"] < far["slot_warps"], far
+
+
+def test_l2_read_rate_is_a_rate(dev):
+    """The L2 probe reads what it says: more passes take longer, and the
+    rate lies between the HBM's 3.35 TB/s and 100 TB/s."""
+    from sgs_tpu_torch.tools import l2_rate
+
+    one = l2_rate.l2_read_rate(dev, mib=24, passes=5)
+    more = l2_rate.l2_read_rate(dev, mib=24, passes=20)
+    assert more["ms"] > one["ms"]
+    assert 3.35e12 < more["bytes_per_s"] < 1e14, more

@@ -91,3 +91,19 @@ def test_gather_rows_count_partials_and_two_ops():
     assert k["bytes"] == 2 * 100 * 8 * 4 and k["ops"] == 0 and k["bound_by"] == "bytes"
     for row in (h, i, j):
         assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
+
+
+@pytest.mark.parametrize("rate", [1e12, exp_bounds.L2_READ_BYTES_PER_S, 1e16])
+def test_vmem_gather_bound_has_l2_term(rate):
+    """H's bound is the larger of its HBM bytes' time and its gathered
+    records' bytes (64 per id of a whole grid step) at the L2 read rate."""
+    table, ids = gather_inputs.vmem_inputs(50, 20, seed=0)  # 2 steps, 4 rows past them
+    n_ids = 2 * 8 * 128
+    h = exp_bounds.vmem_gather_row(table, ids, rate)
+    assert h["l2_bytes"] == n_ids * 64 and h["l2_bytes_per_s"] == rate
+    assert h["l2_ms"] == pytest.approx(n_ids * 64 / rate * 1e3, rel=1e-12)
+    assert h["hbm_bound_ms"] == pytest.approx(h["bytes"] / exp_bounds.HBM_BYTES_PER_S * 1e3, rel=1e-12)
+    assert h["bound_ms"] == max(h["hbm_bound_ms"], h["l2_ms"]) and h["bound_by"] == "bytes"
+    assert h["bound_term"] == ("l2" if h["l2_ms"] > h["hbm_bound_ms"] else "hbm")
+    small_dma = (torch.zeros((1000, 16)), torch.zeros(16, dtype=torch.int32))
+    assert exp_bounds.gather_rows((table, ids), small_dma, 100, rate)[0]["bound_ms"] == h["bound_ms"]

@@ -382,8 +382,13 @@ def test_scan_ablation_runs_on_the_cpu(capsys):
     res = scan_ablation.main(["--width", 64, "--height", 48, "--n", 300, "--device", "cpu"])
     out = capsys.readouterr().out
     assert "64x48, 300 Gaussians" in out and "not measured" in out
-    assert len(res["rows"]) == 2 * len(scan_ablation.INSTANCES) == 16
+    assert len(res["rows"]) == 2 * len(scan_ablation.INSTANCES) == 18
     assert all(r["committed_ms"] == "not measured" for r in res["rows"])
+    alpha = [r for r in res["rows"] if r["mode"] == "alpha"]
+    assert {(r["krows"], r["out_cols"]) for r in alpha} == {(8, 8), (8, 1), (32, 8), (32, 1)}
+    assert all(r[f"{n}_ms"] == "not measured" for r in alpha for n in scan_ablation.ALPHA_VARIANTS)
+    assert not any(f"{n}_ms" in r for r in res["rows"] if r["mode"] != "alpha" for n in scan_ablation.ALPHA_VARIANTS)
+    assert 0 < res["far"]["far"] < res["far"]["slot_warps"]
     assert res["dead_warps"]["rows_walked"] > 0 and 0.0 <= res["dead_warps"]["share"] <= 1.0
     bal = res["balance"]
     assert bal["snake_max_over_mean"] >= bal["greedy_max_over_mean"] >= 1.0
@@ -400,3 +405,53 @@ def test_block_balance_counts_walked_rows():
     assert bal["snake_max_over_mean"] == 1.0 and bal["greedy_max_over_mean"] == 1.0
     bal = scan_ablation.block_balance(sc, row_tile < 4, 3)
     assert bal["snake_max_over_mean"] == 4.0 / (10 / 3) and bal["greedy_max_over_mean"] == 4.0 / (10 / 3)
+
+
+def test_alpha_variants_apply_to_the_committed_source():
+    """Each of F alpha's variants finds its committed text (the build would
+    refuse it otherwise) and changes the source."""
+    committed = scan_ablation.SOURCE.read_text()
+    for name in [*scan_ablation.VARIANTS, *scan_ablation.ALPHA_VARIANTS]:
+        assert scan_ablation.variant_source(name).read_text() != committed, name
+
+
+def _far_by_hand(sc, warp_pixels):
+    recs = sc["packed_fm"].view(-1, rows.REC, rows.CHUNK)
+    far = total = 0
+    for r in range(sc["rows_used"]):
+        t = int(sc["row_tile"][r])
+        px = (t % sc["tiles_x"]) * 16 + torch.arange(256) % 16
+        py = (t // sc["tiles_x"]) * 16 + torch.arange(256) // 16
+        rec = recs[r]
+        dx = rec[0][None, :] - px.float()[:, None]
+        dy = rec[1][None, :] - py.float()[:, None]
+        power = -0.5 * (rec[2] * dx * dx + rec[4] * dy * dy) - rec[3] * dx * dy
+        threshold = torch.log(torch.full_like(rec[5], ALPHA_MIN) / rec[5]) - ef.FAR_MARGIN
+        is_far = (power < threshold).view(256 // warp_pixels, warp_pixels, rows.CHUNK).all(dim=1)
+        far, total = far + int(is_far.sum()), total + is_far.numel()
+    return far, total
+
+
+@pytest.mark.parametrize("warp_pixels", [64, 32])
+def test_far_records_counts_by_hand(scene, warp_pixels):
+    """`far_records` against a row-by-row count, in steps that split the
+    rows unevenly; the padding slots (opacity 0) are always far."""
+    got = ef.far_records(scene["packed_fm"], scene["row_tile"], scene["tiles_x"], scene["num_tiles"],
+                         warp_pixels, rows_per_step=5)
+    far, total = _far_by_hand(scene, warp_pixels)
+    assert (got["far"], got["slot_warps"]) == (far, total) and 0 < far < total
+    pad = int((scene["windows"][: scene["rows_used"]] >= scene["n_gaussians"]).sum())
+    assert far >= pad * (256 // warp_pixels)
+
+
+def test_far_threshold_leaves_no_alpha():
+    """Below the far threshold the alpha is 0 with room to spare: at the
+    largest f32 power below ln(1/255 / op) - FAR_MARGIN, op * exp(power)
+    stays under 1/255 by more than the exp's and the product's rounding,
+    for opacities from 1e-6 to 1 (the sentinel's 0 gives an infinite
+    threshold: its alpha is 0 at any power)."""
+    op = torch.logspace(-6, 0, 200_001, dtype=torch.float32)
+    threshold = torch.log(torch.full_like(op, ALPHA_MIN) / op) - ef.FAR_MARGIN
+    power = torch.nextafter(threshold, torch.full_like(threshold, -float("inf")))
+    alpha = op * torch.exp(power)
+    assert float((alpha / ALPHA_MIN).max()) < 1.0 - 0.9 * ef.FAR_MARGIN

@@ -5,6 +5,8 @@ against the JAX jnp oracle `_ssim_jnp` and the fused Pallas forward
 summed in Kernel B's order; that order is held to a float64 mean and to
 the same order written out by hand."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,7 @@ from sgs_tpu.ops.pallas import ssim_kernels as sk
 from sgs_tpu_torch.ops import ssim
 
 torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parents[1]
 SIZES = [(37, 53), (64, 128), (100, 240), (16, 16), (48, 96)]
 
 
@@ -49,10 +52,52 @@ def test_identical_images_give_one():
 
 
 def test_window_matches_jax():
-    np.testing.assert_allclose(
-        ssim.gaussian_window().numpy(), np.asarray(jssim._gaussian_window(11, 1.5)),
-        rtol=1e-6, atol=0,
-    )
+    """The 11 taps are JAX's f32 bits (Kernels B and D take the same)."""
+    want = np.asarray(jssim._gaussian_window(11, 1.5), dtype=np.float32)
+    got = ssim.gaussian_window().numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(np.asarray(ssim._window_arg(), dtype=np.float32).view(np.int32),
+                                  want.view(np.int32))
+
+
+def _jax_ssim_map(x, y):
+    """`_ssim_jnp`'s map, before its mean, from the JAX package's own
+    window and separable passes."""
+    w1d = jssim._gaussian_window(11, 1.5)
+
+    def conv(v):
+        return jssim._separable_window_conv(v, w1d, 5)
+
+    mu1, mu2 = conv(x), conv(y)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    sigma1_sq = conv(x * x) - mu1_sq
+    sigma2_sq = conv(y * y) - mu2_sq
+    sigma12 = conv(x * y) - mu1_mu2
+    c1, c2 = 0.01**2, 0.03**2
+    return ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / ((mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
+
+
+def test_map_matches_jax_on_committed_render():
+    """A committed 400x400 render and its ground truth, decoded with the
+    port's PNG codec: the port's SSIM map equals JAX's, run op by op, bit
+    for bit (a natural image pair is ill-conditioned where random ones are
+    not: 1-ulp taps moved its SSIM by about 8e-6), and the port's mean is
+    within rtol 1e-6 of the map's float64 mean."""
+    import jax
+
+    from sgs_tpu_torch.metrics import read_image
+
+    views = ROOT / "runs" / "lgm_r5" / "test" / "ours_3000"
+    x = read_image(views / "renders" / "00000.png", torch.device("cpu"))
+    y = read_image(views / "gt" / "00000.png", torch.device("cpu"))
+    assert tuple(x.shape) == (3, 400, 400)
+    with jax.disable_jit():
+        want = np.asarray(_jax_ssim_map(jnp.asarray(x.numpy()), jnp.asarray(y.numpy())))
+    got = ssim.ssim_map(x, y).numpy()
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_allclose(float(ssim.ssim_plain(x, y)), want.astype(np.float64).mean(), rtol=1e-6)
 
 
 @pytest.mark.parametrize("h,w", [(37, 53), (100, 240)])

@@ -71,3 +71,23 @@ def test_view_order_matches_jax(toy_scene, tmp_path, monkeypatch):
     assert len(seen_jax) == len(seen_port) == ITERS
     assert seen_port == seen_jax
     assert len(set(seen_port[:12])) == 12, "each pass over the stack sees every view once"
+
+
+def test_prints_no_tensorboard_line(toy_scene, tmp_path, monkeypatch, capsys):
+    """The port never imports tensorboard: it prints the JAX trainer's
+    line for a missing tensorboard once, where training starts, and
+    trains on."""
+    steps = []
+
+    def port_step(state, camera, gt_image, *args, **kwargs):
+        steps.append(1)
+        return state, {"loss": torch.tensor(0.0), "l1": torch.tensor(0.0),
+                       "nonfinite_grads": torch.tensor(0)}
+
+    monkeypatch.setattr(trainer, "train_step", port_step)
+    data = config.ModelParams(source_path=toy_scene, model_path=str(tmp_path / "port"), eval=True)
+    trainer.training(data, config.OptimizationParams(iterations=3), config.PipelineParams(no_tqdm=True),
+                     [], [], [], scene=Scene(data, device="cpu"), device="cpu")
+    lines = capsys.readouterr().out.splitlines()
+    assert lines.count("Tensorboard not available: not logging progress") == 1
+    assert len(steps) == 3
