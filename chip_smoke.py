@@ -82,7 +82,24 @@ Phases:
      calls' ms, the card's L2 read rate (`tools/l2_rate.py`), and the
      bounds (`tools/exp_bounds.py`; H's the larger of its HBM bytes and
      its 132 MB of record reads at that L2 rate);
- 10. a `{"kernels": [...]}` line, the device line, and last the result
+ 10. the latent/structured model (`data/lgm400`, 2,000 structures x 8
+     Gaussians at 400x400): (a) the committed snapshot
+     (`assets/lgm/point_cloud.ply`) through `python -m
+     sgs_tpu_torch.render` and `python -m sgs_tpu_torch.metrics`, held
+     per view to `assets/lgm/per_view.json` (the cfg_args written from
+     `runs/lgm_r5/cfg_args`'s values), launch counts reset before and
+     read after; (b) one step at full width from the port's own seeded
+     init (the CLI's 2,000 points of the 20,000): Kernels A and C against
+     their plain versions bit for bit on the step's fat early splats, the
+     image and every leaf's gradient through A-D against the plain path's,
+     and the step split into decode, render, backward and Adam; (c)
+     `python -m sgs_tpu_torch.train_lgm` from scratch for 3,000
+     iterations (in this process, the counts reset before and read
+     after: A once a step and once per report view, B, C and D once a
+     step), whose test PSNR must rise from 1,000 to 3,000 and end within
+     1.0 dB of the JAX run's (`runs/lgm_r5.log`); then A-D's device ms
+     on the LGM's shapes at iterations 1, 1,000 and 3,000;
+ 11. a `{"kernels": [...]}` line, the device line, and last the result
      line `{"ok": true, "device": {...}}`.
 
 Any failed phase raises and the script exits nonzero. It needs the
@@ -95,6 +112,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import random
 import subprocess
 import sys
 import time
@@ -107,9 +125,11 @@ from sgs_tpu_torch.core.device import resolve_device
 from sgs_tpu_torch.core.projection import TILE, tile_rect
 from sgs_tpu_torch.data.ply import load_gaussian_ply
 from sgs_tpu_torch.data.readers import read_cameras_from_transforms, read_nerf_synthetic_split
-from sgs_tpu_torch.data.scene import get_nerfpp_norm
+from sgs_tpu_torch.data.scene import Scene, get_nerfpp_norm
 from sgs_tpu_torch.metrics import evaluate, read_image
+from sgs_tpu_torch.metrics import main as metrics_main
 from sgs_tpu_torch.models.gaussians import PARAM_FIELDS, DensifyStats, GaussianModel, default_capacity
+from sgs_tpu_torch.models.latent import LatentGaussianModel
 from sgs_tpu_torch.ops import build, exp_forward, flat_raster, gather, ssim as ssim_ops
 from sgs_tpu_torch.ops.ssim import l1_loss
 from sgs_tpu_torch.render.cli import main as render_main
@@ -124,9 +144,11 @@ from sgs_tpu_torch.tools.exp_bounds import bound_ms
 from sgs_tpu_torch.tools.ssim_times import time_ms
 from sgs_tpu_torch.train.__main__ import main as train_main
 from sgs_tpu_torch.train.checkpoint import save_checkpoint
+from sgs_tpu_torch.train import lgm_trainer
 from sgs_tpu_torch.train.loop import TrainState, eval_render, train_step
-from sgs_tpu_torch.train.optim import AdamState, adam_update, make_lr_dict
-from sgs_tpu_torch.utils.config import ModelParams, OptimizationParams, PipelineParams
+from sgs_tpu_torch.train.optim import AdamState, TreeAdamState, adam_tree_update, adam_update, make_lr_dict
+from sgs_tpu_torch.train_lgm import main as train_lgm_main
+from sgs_tpu_torch.utils.config import ModelParams, OptimizationParams, PipelineParams, save_cfg_args
 
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP_PLY = ROOT / "assets" / "flagship" / "point_cloud.ply"
@@ -161,6 +183,29 @@ GRAD_RTOL, GRAD_ATOL_SCALE = 1e-4, 1e-6
 # (7, 9) is smaller than a tile; (100, 244) takes the 16-byte loads with
 # tiles ragged both ways; 1080x1920 is ragged along H only (1920 = 60 x 32)
 SSIM_SIZES = [(7, 9), (37, 53), (64, 128), (100, 244), (800, 800), (1080, 1920)]
+# The latent/structured model: data/lgm400 (48 train and 8 test views at
+# 400x400), the JAX run's command (assets/lgm/README.md) and config
+# (runs/lgm_r5/cfg_args: SH degree 0, black background, eval).
+LGM_SCENE = ROOT / "data" / "lgm400"
+LGM_PLY = ROOT / "assets" / "lgm" / "point_cloud.ply"
+LGM_PER_VIEW = ROOT / "assets" / "lgm" / "per_view.json"
+LGM_RESULTS = ROOT / "assets" / "lgm" / "results.json"
+LGM_RENDER_DIR = ROOT / "build" / "smoke" / "lgm"
+LGM_TRAIN_DIR = ROOT / "build" / "smoke" / "train_lgm"
+LGM_METHOD = "ours_3000"
+LGM_DOWNSAMPLE = 10
+LGM_ITERS = 3000
+LGM_TESTS = (1000, 2000, 3000)
+# The JAX run's report PSNR (runs/lgm_r5.log: TPU v5e, 3,000 iterations
+# from the same 2,000 points with JAX's own random latents and decoder)
+JAX_LGM_TEST_PSNR = {1000: 17.849565267562866, 2000: 19.90630555152893, 3000: 21.300128698349}
+JAX_LGM_TRAIN_PSNR = {1000: 18.165253162384033, 2000: 20.277136087417603, 3000: 21.700287342071533}
+# the port's init cannot be JAX's (no JAX on the card), and JAX's run
+# dropped 28,736 splats for one step at iteration 30 (its instance bucket
+# overflowed): the end of the run is held to within 1.0 dB
+LGM_PSNR_BAR = 1.0
+# the LGM step's image through Kernels A-D against the plain path's
+LGM_IMAGE_ATOL = 3e-5
 
 
 def say(*parts) -> None:
@@ -732,17 +777,10 @@ def step_grads(model, cam, gt, bg):
     return dict(zip(PARAM_FIELDS + ("tap",), grads))
 
 
-def phase_step(dev, model, view) -> dict:
-    """One training step on flagship test view 0: gradients through the
-    kernels against the plain path's, Kernels C and D against their plain
-    versions on the step's own inputs, and the step split into stages."""
-    cam, gt = view.camera, view.gt_image
-    bg = torch.zeros(3, device=dev)
-    w, h = cam.image_width, cam.image_height
-    got = step_grads(model, cam, gt, bg)
-    with plain_path():
-        want = step_grads(model, cam, gt, bg)
-    torch.cuda.synchronize()
+def check_grads(got: dict, want: dict) -> dict:
+    """Each gradient through the kernels against the plain path's: the same
+    non-finite elements, the rest within rtol GRAD_RTOL plus GRAD_ATOL_SCALE
+    of the field's largest; returns max |err| / largest per field."""
     worst = {}
     for f, g in got.items():
         wv = want[f]
@@ -755,17 +793,37 @@ def phase_step(dev, model, view) -> dict:
             raise AssertionError(f"gradient {f} through the kernels differs from the plain path: "
                                  f"max |err| {float(err.max())}, scale {scale}")
         worst[f] = float(err.max()) / max(scale, 1e-30)
+    return worst
 
-    # the step's own inputs to Kernels C and D
-    p = project_and_shade(cam, model.render_inputs(SH_DEGREE))
-    bins, args = raster_inputs(p, w, h)
+
+def step_kernel_inputs(inputs, cam, gt, bg):
+    """Kernels A-D's arguments in a training step on one view: (projection
+    and shading, A's args, C's args, the image, the loss's cotangent for D)."""
+    p = project_and_shade(cam, inputs)
+    bins, args = raster_inputs(p, cam.image_width, cam.image_height)
     color, t_final, n_contrib = flat_raster.rasterize_tiles(*args)
     image = (color + t_final[None] * bg[:, None, None]).requires_grad_(True)
     (dc,) = torch.autograd.grad(ssim_ops.training_loss(image, gt, 0.2), image)
     bargs = (*args, t_final, n_contrib, dc.contiguous(), bg, bins["perm"], bins["rank_start"],
              bins["order"])
-    img = image.detach().contiguous()
-    cot = torch.tensor(-0.2, device=dev)
+    return p, args, bargs, image.detach().contiguous(), torch.tensor(-0.2, device=gt.device)
+
+
+def phase_step(dev, model, view) -> dict:
+    """One training step on flagship test view 0: gradients through the
+    kernels against the plain path's, Kernels C and D against their plain
+    versions on the step's own inputs, and the step split into stages."""
+    cam, gt = view.camera, view.gt_image
+    bg = torch.zeros(3, device=dev)
+    w, h = cam.image_width, cam.image_height
+    got = step_grads(model, cam, gt, bg)
+    with plain_path():
+        want = step_grads(model, cam, gt, bg)
+    torch.cuda.synchronize()
+    worst = check_grads(got, want)
+
+    # the step's own inputs to Kernels C and D
+    p, args, bargs, img, cot = step_kernel_inputs(model.render_inputs(SH_DEGREE), cam, gt, bg)
     err_c = compare_raster_backward(bargs)
     err_d = compare_ssim_backward(img, gt, cot)
     err_b = compare_ssim(img, gt)
@@ -809,7 +867,7 @@ def phase_step(dev, model, view) -> dict:
             "c_ms": c_ms, "d_ms": d_both_ms, "stages": stages, "step_ms": step_ms}
 
 
-def profile_steps(step, n: int = 5) -> None:
+def profile_steps(step, n: int = 5, label: str = "[5 profile]") -> None:
     """Device busy and idle share of `n` steps and the kernels that take
     the most device time, from torch.profiler. Prints "not measured" if
     the profiler records no device activity."""
@@ -825,7 +883,7 @@ def profile_steps(step, n: int = 5) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        say("[5 profile] device busy share: not measured (no device events recorded)")
+        say(f"{label} device busy share: not measured (no device events recorded)")
         return
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
@@ -840,7 +898,7 @@ def profile_steps(step, n: int = 5) -> None:
     for e in kernels:
         totals[e.name] = totals.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(totals.items(), key=lambda kv: -kv[1])[:8]
-    say(f"[5 profile] {n} steps: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+    say(f"{label} {n} steps: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
         f"({100 * busy / wall_us:.1f}%, idle {100 * (1 - busy / wall_us):.1f}%), "
         f"{len(kernels)} kernel launches ({len(kernels) / n:.0f} per step); top kernels by device ms: "
         + "; ".join(f"{name[:60]} {t / 1e3:.3f}" for name, t in top))
@@ -1187,6 +1245,187 @@ def phase_gather(dev, errs: dict) -> list:
              "library_ms": lib_ms[k]} for k in "HIJK"]
 
 
+def phase_lgm_render(dev) -> None:
+    """(a) The committed LGM snapshot through the render and metrics CLIs,
+    held per view to the JAX package's numbers."""
+    per_view = json.loads(LGM_PER_VIEW.read_text())[LGM_METHOD]
+    # runs/lgm_r5/cfg_args, with this checkout's paths
+    save_cfg_args(str(LGM_RENDER_DIR), ModelParams(
+        sh_degree=0, source_path=str(LGM_SCENE), model_path=str(LGM_RENDER_DIR),
+        white_background=False, eval=True))
+    reset_counts()
+    t0 = time.perf_counter()
+    run_cli(render_main, ["-m", LGM_RENDER_DIR, "--ply", LGM_PLY, "--sh_degree", 0,
+                          "--iteration", 3000, "--skip_train", "--device", dev.type])
+    run_cli(metrics_main, ["-m", LGM_RENDER_DIR, "--device", dev.type])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    wall = time.perf_counter() - t0
+    mine = json.loads((LGM_RENDER_DIR / "per_view.json").read_text())[LGM_METHOD]
+    names = sorted(per_view["PSNR"])
+    if sorted(mine["PSNR"]) != names:
+        raise AssertionError(f"rendered views {sorted(mine['PSNR'])} != {names}")
+    failures = []
+    for name in names:
+        dp = mine["PSNR"][name] - per_view["PSNR"][name]
+        ds = mine["SSIM"][name] - per_view["SSIM"][name]
+        say(f"[10 lgm] snapshot {name}: PSNR {mine['PSNR'][name]:.4f} (JAX {per_view['PSNR'][name]:.4f}, "
+            f"d {dp:+.5f}) SSIM {mine['SSIM'][name]:.6f} (JAX {per_view['SSIM'][name]:.6f}, d {ds:+.2e})")
+        if abs(dp) > PSNR_BAR or abs(ds) > SSIM_BAR:
+            failures.append(name)
+    got = json.loads((LGM_RENDER_DIR / "results.json").read_text())[LGM_METHOD]
+    results = json.loads(LGM_RESULTS.read_text())[LGM_METHOD]
+    say(f"[10 lgm] snapshot mean: PSNR {got['PSNR']:.7f} (JAX {results['PSNR']:.7f}, "
+        f"d {got['PSNR'] - results['PSNR']:+.2e}) SSIM {got['SSIM']:.7f} (JAX {results['SSIM']:.7f}, "
+        f"d {got['SSIM'] - results['SSIM']:+.2e}); launches A {launches['A']} B {launches['B']}; "
+        f"render+metrics CLIs {wall:.2f} s")
+    if failures:
+        raise AssertionError(f"LGM views off the JAX numbers: {failures}")
+    if launches != only(A=len(names), B=len(names)):
+        raise AssertionError(f"LGM render launches {launches}, expected A and B {len(names)}")
+
+
+def lgm_init(dev):
+    """The train_lgm CLI's init on data/lgm400: (scene, model). The CLI
+    seeds `random`, `numpy` and `torch` with 0 before the Scene draws its
+    2,000 points; the trainer's generator is seeded with 0."""
+    random.seed(0)
+    np.random.seed(0)
+    torch.manual_seed(0)
+    dataset = ModelParams(sh_degree=0, source_path=str(LGM_SCENE), model_path="", eval=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        scene = Scene(dataset, device=dev, downsample_init=LGM_DOWNSAMPLE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = LatentGaussianModel.create(gen, np.zeros((1, 3), np.float32), device=dev)
+    model.create_from_pcd(gen, scene.init_pcd.points, scene.init_pcd.colors)
+    return scene, model
+
+
+def lgm_kernel_ms(label, model, cam, gt, bg) -> dict:
+    """Kernels A-D's device ms on one LGM view."""
+    with torch.no_grad():
+        inputs = model.render_inputs(0)
+    _, args, bargs, img, cot = step_kernel_inputs(inputs, cam, gt, bg)
+    ms = {"A": time_ms(lambda: flat_raster.rasterize_tiles(*args), 10),
+          "B": time_ms(lambda: ssim_ops.ssim_forward(img, gt), 20),
+          "C": time_ms(lambda: flat_raster.rasterize_tiles_backward(*bargs), 10),
+          "D": time_ms(lambda: ssim_ops.ssim_backward(img, gt, cot, with_dy=False), 20)}
+    runs = bargs[12]
+    say(f"[10 lgm] {label}: {bargs[2].shape[0]} instances, longest tile list "
+        f"{int((args[1] - args[0]).max())}, longest run {int((runs[1:] - runs[:-1]).max())}; device ms "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    return ms
+
+
+def lgm_image_and_grads(model, cam, gt, bg):
+    _, _, grads, out = lgm_trainer.lgm_grads(model, cam, gt, bg, 0.2, 0)
+    return out["render"].detach(), grads
+
+
+def phase_lgm_step(dev) -> None:
+    """(b) One full-width LGM step from the port's seeded init: Kernels A
+    and C against their plain versions bit for bit on the step's inputs,
+    the image and every leaf's gradient through the kernels against the
+    plain path's, then the step split into its stages."""
+    scene, model = lgm_init(dev)
+    view = scene.getTrainCameras()[0]
+    cam, gt = view.camera, view.gt_image
+    bg = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        inputs = model.render_inputs(0)
+    _, args, bargs, _, _ = step_kernel_inputs(inputs, cam, gt, bg)
+    compare_raster(args)
+    compare_raster_backward(bargs)
+    image, got = lgm_image_and_grads(model, cam, gt, bg)
+    with plain_path():
+        want_image, want = lgm_image_and_grads(model, cam, gt, bg)
+    torch.cuda.synchronize()
+    img_err = float((image - want_image).abs().max())
+    if not img_err <= LGM_IMAGE_ATOL:
+        raise AssertionError(f"LGM image through the kernels differs from the plain path: {img_err}")
+    worst = {k.split("/", 1)[-1]: v for k, v in check_grads(got, want).items()}
+    say(f"[10 lgm] step at init ({model.num_structures} structures, {model.num_gaussians} Gaussians, "
+        f"400x400, train view 0): A and C equal their plain versions bit for bit; image max |err| "
+        f"{img_err:.2e} (bar {LGM_IMAGE_ATOL}); gradients max |err| / leaf max: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f" (rtol {GRAD_RTOL}, atol {GRAD_ATOL_SCALE} x max)")
+    lgm_kernel_ms("iteration 1 (init)", model, cam, gt, bg)
+
+    # the step's stages, host included (CUDA events, means over the reps):
+    # decode (the MLP, the composition and the activations), render and
+    # loss from decoded inputs, the backward through everything, Adam
+    params = model.trainable_params()
+    stages = {"decode": time_cuda(lambda: model.render_inputs(0), 10)}
+    inputs = model.render_inputs(0)
+    stages["render+loss"] = time_cuda(
+        lambda: ssim_ops.training_loss(render(cam, inputs, bg)["render"], gt, 0.2), 10)
+    loss = ssim_ops.training_loss(render(cam, inputs, bg)["render"], gt, 0.2)
+    stages["backward"] = time_cuda(
+        lambda: torch.autograd.grad(loss, list(params.values()), retain_graph=True), 10)
+    adam = TreeAdamState.init(params)
+    stages["Adam"] = time_cuda(
+        lambda: adam_tree_update(params, got, adam, lgm_trainer.LGM_LR, eps=lgm_trainer.LGM_EPS), 10)
+    state = {"adam": adam}
+
+    def step():
+        state["adam"], _ = lgm_trainer.lgm_train_step(model, state["adam"], cam, gt, bg, 0.2, 0)
+
+    step_ms = time_cuda(step, 10)
+    say(f"[10 lgm] one step at init: {step_ms:.3f} ms; "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f" ms (sum {sum(stages.values()):.3f} ms)")
+    profile_steps(step, label="[10 lgm profile]")
+
+
+def phase_lgm_train(dev) -> None:
+    """(c) `python -m sgs_tpu_torch.train_lgm` from scratch, then A-D on
+    its checkpoints."""
+    argv = ["-s", LGM_SCENE, "-m", LGM_TRAIN_DIR, "--eval", "--iterations", LGM_ITERS,
+            "--downsample_init", LGM_DOWNSAMPLE, "--sh_degree", 0,
+            "--test_iterations", *LGM_TESTS, "--save_iterations", LGM_ITERS,
+            "--checkpoint_iterations", LGM_TESTS[0], LGM_ITERS, "--device", dev.type]
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_cli(train_lgm_main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    reports = {}
+    for ln in out.splitlines():
+        if "Evaluating" in ln:
+            it = int(ln.split("[ITER ")[1].split("]")[0])
+            reports[(ln.split("Evaluating ")[1].split(":")[0], it)] = float(ln.split("PSNR ")[1])
+    n_views = len(json.loads((LGM_SCENE / "transforms_test.json").read_text())["frames"]) + 8
+    steps = LGM_ITERS
+    rate = [ln for ln in out.splitlines() if ln.startswith("LGM: ")]
+    for it in LGM_TESTS:
+        say(f"[10 lgm] from scratch, iteration {it}: test PSNR {reports[('test', it)]:.4f} "
+            f"(JAX {JAX_LGM_TEST_PSNR[it]:.4f}, d {reports[('test', it)] - JAX_LGM_TEST_PSNR[it]:+.4f}), "
+            f"train[:8] PSNR {reports[('train', it)]:.4f} (JAX {JAX_LGM_TRAIN_PSNR[it]:.4f}, "
+            f"d {reports[('train', it)] - JAX_LGM_TRAIN_PSNR[it]:+.4f})")
+    say(f"[10 lgm] from scratch: {rate[0] if rate else 'no rate line'}; trainer call {wall:.2f} s "
+        f"(scene load and reports included); launches {launches}")
+    first, last = reports[("test", LGM_TESTS[0])], reports[("test", LGM_ITERS)]
+    if not last > first:
+        raise AssertionError(f"LGM test PSNR did not rise: {first} at {LGM_TESTS[0]}, {last} at {LGM_ITERS}")
+    if last < JAX_LGM_TEST_PSNR[LGM_ITERS] - LGM_PSNR_BAR:
+        raise AssertionError(f"LGM test PSNR {last} at {LGM_ITERS} is more than {LGM_PSNR_BAR} dB "
+                             f"below JAX's {JAX_LGM_TEST_PSNR[LGM_ITERS]}")
+    if launches != only(A=steps + len(LGM_TESTS) * n_views, B=steps, C=steps, D=steps):
+        raise AssertionError(f"LGM training launches {launches}, expected A {steps} + "
+                             f"{len(LGM_TESTS)} x {n_views}, B, C and D {steps}")
+    if not (LGM_TRAIN_DIR / "point_cloud" / f"iteration_{LGM_ITERS}" / "point_cloud.ply").exists():
+        raise AssertionError("train_lgm wrote no snapshot")
+
+    scene, model = lgm_init(dev)
+    view = scene.getTrainCameras()[0]
+    bg = torch.zeros(3, device=dev)
+    for it in (LGM_TESTS[0], LGM_ITERS):
+        lgm_trainer.load_lgm_checkpoint(str(LGM_TRAIN_DIR / f"chkpnt{it}.npz"), model)
+        lgm_kernel_ms(f"iteration {it}", model, view.camera, view.gt_image, bg)
+
+
 def main(device: str = "cuda") -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1205,7 +1444,10 @@ def main(device: str = "cuda") -> int:
     kernels = phase_timing(dev, errs, train["launches"], views, step)
     kernels += phase_experiments(dev, errs, old_alpha)
     kernels += phase_gather(dev, errs)
-    say(f"[10 done] chip_smoke wall {time.perf_counter() - t_start:.2f} s")
+    phase_lgm_render(dev)
+    phase_lgm_step(dev)
+    phase_lgm_train(dev)
+    say(f"[11 done] chip_smoke wall {time.perf_counter() - t_start:.2f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -63,3 +63,19 @@ def build_covariance(scales: torch.Tensor, quats: torch.Tensor,
     yz = v0 * r10 * r20 + v1 * r11 * r21 + v2 * r12 * r22
     zz = v0 * r20 * r20 + v1 * r21 * r21 + v2 * r22 * r22
     return torch.stack([xx, xy, xz, yy, yz, zz], dim=-1)
+
+
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of wxyz quaternions, (..., 4) x (..., 4) -> (..., 4),
+    in the JAX package's term order (the latent model's composition)."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )

@@ -10,8 +10,11 @@ unless `shuffle` is False, the extent from the NeRF++ normalisation
 radius, and the pool either loaded from
 point_cloud/iteration_<load_iteration>/point_cloud.ply (-1: the latest)
 or built from points3d.ply (a random 100k-point cloud is written first
-when the scene has none). COLMAP and mesh scenes are not ported yet and
-raise.
+when the scene has none). With `downsample_init` d != 1 the init cloud is
+first cut to round(n / d) points drawn by `np.random.choice(n, ...,
+replace=False)` from the global numpy state, as the JAX Scene draws
+them (the CLIs seed it), and `init_pcd` holds the cloud the pool was
+built from. COLMAP and mesh scenes are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import json
 import os
 import random
 import shutil
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -30,6 +33,12 @@ from sgs_tpu_torch.core.sh import C0
 from sgs_tpu_torch.data import ply as ply_io
 from sgs_tpu_torch.data.readers import CameraInfo, LoadedCamera, load_camera, read_cameras_from_transforms
 from sgs_tpu_torch.models.gaussians import GaussianModel
+
+
+class PointCloud(NamedTuple):
+    points: np.ndarray
+    colors: np.ndarray
+    normals: np.ndarray
 
 
 def get_nerfpp_norm(cam_infos: List[CameraInfo]) -> dict:
@@ -80,7 +89,8 @@ class Scene:
     model in place of the model directory's (the render CLI's --ply)."""
 
     def __init__(self, model_params, load_iteration: Optional[int] = None, shuffle: bool = True,
-                 device: "str | torch.device" = "cuda", ply_path: Optional[str] = None):
+                 device: "str | torch.device" = "cuda", ply_path: Optional[str] = None,
+                 downsample_init: float = 1.0):
         args = model_params
         src = args.source_path
         self.model_path = args.model_path
@@ -103,7 +113,7 @@ class Scene:
         if not args.eval:
             train, test = train + test, []
         norm = get_nerfpp_norm(train)
-        input_ply, (points, colors, _) = _point_cloud(src)
+        input_ply, cloud = _point_cloud(src)
 
         if not self.loaded_iter and self.model_path:
             os.makedirs(self.model_path, exist_ok=True)
@@ -124,8 +134,14 @@ class Scene:
                 self.model_path, "point_cloud", f"iteration_{self.loaded_iter}", "point_cloud.ply")
             self.pool = GaussianModel.from_ply(ply_path, args.sh_degree, device)
         else:
-            print(f"Number of points at initialisation : {len(points)}")
-            self.pool = GaussianModel.from_pcd(points, colors, args.sh_degree, device=device)
+            pcd = PointCloud(*cloud)
+            if downsample_init != 1.0:
+                num = round(len(pcd.points) / downsample_init)
+                idx = np.random.choice(len(pcd.points), num, replace=False)
+                pcd = PointCloud(pcd.points[idx], pcd.colors[idx], pcd.normals[idx])
+            self.init_pcd = pcd
+            print(f"Number of points at initialisation : {len(pcd.points)}")
+            self.pool = GaussianModel.from_pcd(pcd.points, pcd.colors, args.sh_degree, device=device)
 
     def save(self, model: GaussianModel, iteration: int) -> str:
         path = os.path.join(self.model_path, f"point_cloud/iteration_{iteration}", "point_cloud.ply")

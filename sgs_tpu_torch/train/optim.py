@@ -6,6 +6,11 @@ with their own learning rates, betas (0.9, 0.999) and eps 1e-15, and one
 step counter per field, so densification keeps the step while zeroing the
 moments of new slots. The update is written in the JAX package's
 expression order, which is also torch.optim.Adam's step for step.
+
+`adam_tree_update` is the other Adam, the one the latent model trains
+with: `optax.adam(lr, eps=eps)` over a dict of tensors, one step count
+for the whole tree and optax 0.2.6's expressions (bias-corrected moments,
+then m / (sqrt(v) + eps), then p + (-lr) u).
 """
 
 from __future__ import annotations
@@ -86,6 +91,38 @@ def adam_update(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
         new_nu[k] = nu
         new_step[k] = t
     return new_params, AdamState(mu=new_mu, nu=new_nu, step=new_step)
+
+
+@dataclass
+class TreeAdamState:
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+    count: int
+
+    @classmethod
+    def init(cls, params: Dict[str, torch.Tensor]) -> "TreeAdamState":
+        return cls(mu={k: torch.zeros_like(v) for k, v in params.items()},
+                   nu={k: torch.zeros_like(v) for k, v in params.items()}, count=0)
+
+
+def adam_tree_update(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+                     state: TreeAdamState, lr: float, b1: float = ADAM_B1, b2: float = ADAM_B2,
+                     eps: float = ADAM_EPS):
+    """One `optax.adam` step over every leaf; returns (new params, new state)."""
+    count = state.count + 1
+    new_params, new_mu, new_nu = {}, {}, {}
+    for k, p in params.items():
+        g = grads[k]
+        mu = (1 - b1) * g + b1 * state.mu[k]
+        nu = (1 - b2) * (g * g) + b2 * state.nu[k]
+        t = torch.tensor(float(count), dtype=torch.float32, device=p.device)
+        bias1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=p.device), t)
+        bias2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=p.device), t)
+        u = (mu / bias1) / (torch.sqrt(nu / bias2) + eps)
+        new_params[k] = p + (-lr) * u
+        new_mu[k] = mu
+        new_nu[k] = nu
+    return new_params, TreeAdamState(mu=new_mu, nu=new_nu, count=count)
 
 
 def expon_lr_func(lr_init: float, lr_final: float, lr_delay_steps: int = 0,

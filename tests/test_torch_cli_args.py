@@ -1,9 +1,11 @@
 """The port's CLIs take the JAX CLIs' command lines.
 
 - `python -m sgs_tpu_torch.train` parses every option string of the
-  repository's `train.py` to the same value, and `python -m
-  sgs_tpu_torch.render` every option string of `render.py`. The JAX
-  parsers are captured from `train.main` and `render.main` themselves.
+  repository's `train.py` to the same value, `python -m
+  sgs_tpu_torch.train_lgm` every one of `train_lgm.py` and `python -m
+  sgs_tpu_torch.render` every one of `render.py`. The JAX parsers are
+  captured from `train.main`, `train_lgm.main` and `render.main`
+  themselves.
 - The render CLI merges the model flags over the persisted cfg_args as
   `sgs_tpu.utils.config.get_combined_args` does (mirroring
   tests/test_eval_tools.py's cfg_args-only and --no-<flag> cases), renders
@@ -24,10 +26,12 @@ import torch
 
 import render as jax_render
 import train as jax_train
+import train_lgm as jax_train_lgm
 from sgs_tpu.data.ply import load_gaussian_ply, save_gaussian_ply
 from sgs_tpu.utils import config as jax_config
 from sgs_tpu_torch.data.ply import save_point_cloud_ply
 from sgs_tpu_torch.render import cli as render_cli
+from sgs_tpu_torch import train_lgm as train_lgm_cli
 from sgs_tpu_torch.train import __main__ as train_cli
 from sgs_tpu_torch.utils import config
 from test_torch_cli import ROOT, make_small_scene
@@ -82,6 +86,21 @@ def test_train_cli_accepts_every_train_py_option(monkeypatch):
     for flag in ("--debug_from", "--detect_anomaly", "--profile_dir", "--no-eval", "-w", "-r"):
         assert any(flag in a.option_strings for a in jax_parser._actions), flag
     assert checked > 50
+
+
+def test_train_lgm_cli_accepts_every_train_lgm_py_option(monkeypatch):
+    jax_parser = _jax_parser(jax_train_lgm, ["-s", "/x"], monkeypatch)
+    checked = _assert_same_options(jax_parser, train_lgm_cli.build_parser())
+    for flag in ("--downsample_init", "--latent_size", "--hidden_size", "--gaussians_per_structure",
+                 "--use_positional_embedding", "--debug_latent", "--start_checkpoint"):
+        assert any(flag in a.option_strings for a in jax_parser._actions), flag
+    assert checked > 50
+    defaults = jax_parser.parse_args([])
+    port_defaults = train_lgm_cli.build_parser().parse_args([])
+    for action in jax_parser._actions:
+        # data_device names the JAX package's device ("tpu"); the port's is "cuda"
+        if not isinstance(action, argparse._HelpAction) and action.dest != "data_device":
+            assert getattr(port_defaults, action.dest) == getattr(defaults, action.dest), action.dest
 
 
 def test_render_cli_accepts_every_render_py_option(monkeypatch):
