@@ -99,8 +99,28 @@ Phases:
      step), whose test PSNR must rise from 1,000 to 3,000 and end within
      1.0 dB of the JAX run's (`runs/lgm_r5.log`); then A-D's device ms
      on the LGM's shapes at iterations 1, 1,000 and 3,000;
- 11. a `{"kernels": [...]}` line, the device line, and last the result
-     line `{"ok": true, "device": {...}}`.
+ 11. the scene readers (`tools/colmap_scene.py` writes the scenes):
+     (a) data/flagship800 as COLMAP, binary and text: 56 cameras, 49 train
+     and 7 test, each camera within 1e-6 and each GT equal to the Blender
+     form's, every view's PSNR of the trained flagship within 1e-4 dB of
+     the Blender form's, then the render and metrics CLIs with
+     `full_eval.py`'s argv on the copy's test split; (b) the same CLIs at
+     -r 2 (400x400 GT through `data/resize.py`); both held per view to the
+     JAX package's render.py and metrics.py on the same copy
+     (`JAX_COLMAP_PSNR`, `JAX_COLMAP_SSIM`); (c) a COLMAP capture of the flagship at
+     2000x1500 (24 of flagship800's train poses, its 20,000 points)
+     through `python -m sgs_tpu_torch.train` from scratch for 100
+     iterations: 1600x1200 cameras, the test L1 falling, the count
+     changing, the scene's load time, one step and A-D's device ms at
+     1600x1200; (d) a Zero123 scene of the flagship (12 RGBA views at
+     256x256, a GLB of 16,000 faces) through the training CLI with
+     `python -m sgs_tpu_torch.train_zero123`'s argv for 30 iterations:
+     xyz stays the init's bit for bit. The launch counts are reset before
+     and read after each run: A-D once a step, A also once per report
+     view, A and B once per view of the render and metrics CLIs;
+ 12. a `{"kernels": [...]}` line (A-D also with `readers_launches`, their
+     launches over phase 11), the device line, and last the result line
+     `{"ok": true, "device": {...}}`.
 
 Any failed phase raises and the script exits nonzero. It needs the
 repository around it and a CUDA device; without either it fails before
@@ -113,6 +133,7 @@ import contextlib
 import io
 import json
 import random
+import shutil
 import subprocess
 import sys
 import time
@@ -123,27 +144,30 @@ import torch
 
 from sgs_tpu_torch.core.device import resolve_device
 from sgs_tpu_torch.core.projection import TILE, tile_rect
-from sgs_tpu_torch.data.ply import load_gaussian_ply
-from sgs_tpu_torch.data.readers import read_cameras_from_transforms, read_nerf_synthetic_split
-from sgs_tpu_torch.data.scene import Scene, get_nerfpp_norm
+from sgs_tpu_torch.data.ply import load_gaussian_ply, load_point_cloud_ply
+from sgs_tpu_torch.data.camera_utils import load_cam, read_nerf_synthetic_split
+from sgs_tpu_torch.data.png import read_png
+from sgs_tpu_torch.data.readers import read_cameras_from_transforms
+from sgs_tpu_torch.data.scene import Scene
 from sgs_tpu_torch.metrics import evaluate, read_image
 from sgs_tpu_torch.metrics import main as metrics_main
 from sgs_tpu_torch.models.gaussians import PARAM_FIELDS, DensifyStats, GaussianModel, default_capacity
 from sgs_tpu_torch.models.latent import LatentGaussianModel
 from sgs_tpu_torch.ops import build, exp_forward, flat_raster, gather, ssim as ssim_ops
-from sgs_tpu_torch.ops.ssim import l1_loss
+from sgs_tpu_torch.ops.ssim import psnr
 from sgs_tpu_torch.render.cli import main as render_main
 from sgs_tpu_torch.render.cli import render_sets
 from sgs_tpu_torch.render.pipeline import project_and_shade, render
 from sgs_tpu_torch.render.tiled import bin_gaussians, kernel_args
-from sgs_tpu_torch.tools import (exp_bounds, exp_dma_gather, exp_fwd, exp_fwd2, exp_gather_layout,
-                                 exp_scene, exp_transposed, exp_vmem_gather, gather_inputs, l2_rate,
-                                 scan_ablation)
+from sgs_tpu_torch import train_zero123
+from sgs_tpu_torch.tools import (colmap_scene, exp_bounds, exp_dma_gather, exp_fwd, exp_fwd2,
+                                 exp_gather_layout, exp_scene, exp_transposed, exp_vmem_gather,
+                                 gather_inputs, l2_rate, scan_ablation)
 # the bounds' peak rates (H100 SXM, NVIDIA's data sheet) are defined there
 from sgs_tpu_torch.tools.exp_bounds import bound_ms
 from sgs_tpu_torch.tools.ssim_times import time_ms
 from sgs_tpu_torch.train.__main__ import main as train_main
-from sgs_tpu_torch.train.checkpoint import save_checkpoint
+from sgs_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from sgs_tpu_torch.train import lgm_trainer
 from sgs_tpu_torch.train.loop import TrainState, eval_render, train_step
 from sgs_tpu_torch.train.optim import AdamState, TreeAdamState, adam_tree_update, adam_update, make_lr_dict
@@ -206,6 +230,40 @@ JAX_LGM_TRAIN_PSNR = {1000: 18.165253162384033, 2000: 20.277136087417603, 3000: 
 LGM_PSNR_BAR = 1.0
 # the LGM step's image through Kernels A-D against the plain path's
 LGM_IMAGE_ATOL = 3e-5
+# Phase 11, the scene readers: data/flagship800 as COLMAP (binary and
+# text) and at -r 2, a COLMAP capture of the flagship at 2000x1500 (the
+# 1.6K downscale) and a Zero123 scene of it at 256x256.
+READERS_DIR = ROOT / "build" / "smoke" / "readers"
+# COLMAP form against Blender form: the camera matrices after the qvec
+# round trip (a float32 ulp or so), and each view's PSNR (the same pixels)
+CAMERA_ATOL, PSNR_FORMS_BAR = 1e-6, 1e-4
+# The JAX package's per-view numbers on the copy's test split, copied
+# from runs/colmap_flagship800_jax/model_{full,half}/per_view.json: its
+# render.py (`--iteration 15000 -s <copy> -m <model> --quiet --eval
+# --skip_train`, and again with `-r 2`) and metrics.py on the CPU, the
+# trained flagship as iteration 15000 of <model> and <copy> written by
+# `tools/colmap_scene.blender_to_colmap(data/flagship800, <copy>)`; the
+# commands and their output are in runs/colmap_flagship800_jax/run.log,
+# and tests/test_torch_colmap.py holds these tables to those files. The
+# port is held to them per view within PSNR_BAR and SSIM_BAR. At -r 2 the
+# model, trained at 800x800, loses 5-8 dB on the views it fits best (its
+# splats are dilated by a fixed 0.3 px at any resolution): JAX loses the
+# same.
+JAX_COLMAP_PSNR = {
+    -1: [13.526159286499023, 40.195228576660156, 39.55110549926758, 38.858497619628906,
+         39.61309814453125, 39.25387954711914, 39.292137145996094],
+    2: [13.531865119934082, 32.430850982666016, 33.409244537353516, 31.624155044555664,
+        34.46583557128906, 32.79426956176758, 32.623836517333984],
+}
+JAX_COLMAP_SSIM = {
+    -1: [0.8584892153739929, 0.993649423122406, 0.9924742579460144, 0.9905703663825989,
+         0.9916015863418579, 0.9917429685592651, 0.991477370262146],
+    2: [0.8300749063491821, 0.9732509851455688, 0.9777948260307312, 0.965461790561676,
+        0.980380654335022, 0.9753411412239075, 0.9717289209365845],
+}
+CAPTURE_W, CAPTURE_H, CAPTURE_VIEWS = 2000, 1500, 24
+CAPTURE_TRAIN_SIZE = (1600, 1200)  # what the 1.6K downscale must give
+ZERO123_SIZE, ZERO123_VIEWS, ZERO123_ITERS = 256, 12, 30
 
 
 def say(*parts) -> None:
@@ -1306,13 +1364,18 @@ def lgm_kernel_ms(label, model, cam, gt, bg) -> dict:
     """Kernels A-D's device ms on one LGM view."""
     with torch.no_grad():
         inputs = model.render_inputs(0)
+    return view_kernel_ms("[10 lgm]", label, inputs, cam, gt, bg)
+
+
+def view_kernel_ms(tag, label, inputs, cam, gt, bg) -> dict:
+    """Kernels A-D's device ms on one view's training-step inputs."""
     _, args, bargs, img, cot = step_kernel_inputs(inputs, cam, gt, bg)
     ms = {"A": time_ms(lambda: flat_raster.rasterize_tiles(*args), 10),
           "B": time_ms(lambda: ssim_ops.ssim_forward(img, gt), 20),
           "C": time_ms(lambda: flat_raster.rasterize_tiles_backward(*bargs), 10),
           "D": time_ms(lambda: ssim_ops.ssim_backward(img, gt, cot, with_dy=False), 20)}
     runs = bargs[12]
-    say(f"[10 lgm] {label}: {bargs[2].shape[0]} instances, longest tile list "
+    say(f"{tag} {label}: {bargs[2].shape[0]} instances, longest tile list "
         f"{int((args[1] - args[0]).max())}, longest run {int((runs[1:] - runs[:-1]).max())}; device ms "
         + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
     return ms
@@ -1426,6 +1489,233 @@ def phase_lgm_train(dev) -> None:
         lgm_kernel_ms(f"iteration {it}", model, view.camera, view.gt_image, bg)
 
 
+def flagship_cameras(dev) -> dict:
+    """Every data/flagship800 view in the Blender form, by the name that
+    its COLMAP copy gives it (`<split>_<stem>`)."""
+    out = {}
+    for split in ("train", "test"):
+        infos = read_cameras_from_transforms(str(FLAGSHIP_SCENE), f"transforms_{split}.json",
+                                             WHITE_BACKGROUND)
+        for i, info in enumerate(infos):
+            out[f"{split}_{info.image_name}"] = load_cam(-1, i, info, 1.0, dev)
+    return out
+
+
+def view_psnr(model, view, bg) -> float:
+    return float(psnr(eval_render(model, view.camera, bg, SH_DEGREE), view.gt_image))
+
+
+def render_and_score(src: Path, model_dir: Path, dev, extra=()) -> tuple:
+    """`python -m sgs_tpu_torch.render` with full_eval.py's argv, then
+    `python -m sgs_tpu_torch.metrics`, on the trained flagship copied in as
+    iteration 15000; returns (per-view PSNR, launches, wall s)."""
+    snap = model_dir / "point_cloud" / "iteration_15000" / "point_cloud.ply"
+    snap.parent.mkdir(parents=True, exist_ok=True)
+    shutil.copyfile(FLAGSHIP_PLY, snap)
+    reset_counts()
+    t0 = time.perf_counter()
+    run_cli(render_main, ["--iteration", 15000, "-s", src, "-m", model_dir, "--quiet", "--eval",
+                          "--skip_train", *extra, "--device", dev.type])
+    run_cli(metrics_main, ["-m", model_dir, "--device", dev.type])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    per_view = json.loads((model_dir / "per_view.json").read_text())[METHOD]
+    return per_view, launches, time.perf_counter() - t0
+
+
+def against_jax(label: str, per_view: dict, resolution: int) -> list:
+    """Print each view's PSNR and SSIM beside the JAX package's on the
+    same split (JAX_COLMAP_*); returns the views off the bars."""
+    failures = []
+    for i, name in enumerate(sorted(per_view["PSNR"])):
+        p, q = per_view["PSNR"][name], per_view["SSIM"][name]
+        dp = p - JAX_COLMAP_PSNR[resolution][i]
+        ds = q - JAX_COLMAP_SSIM[resolution][i]
+        say(f"[11 readers] {label} {name}: PSNR {p:.4f} (JAX {JAX_COLMAP_PSNR[resolution][i]:.4f}, "
+            f"d {dp:+.5f}) SSIM {q:.6f} (JAX {JAX_COLMAP_SSIM[resolution][i]:.6f}, d {ds:+.2e})")
+        if abs(dp) > PSNR_BAR or abs(ds) > SSIM_BAR:
+            failures.append(name)
+    return failures
+
+
+def phase_readers_colmap(dev) -> dict:
+    """(a) data/flagship800 as COLMAP, binary and text, against its Blender
+    form, then the render and metrics CLIs on the copy's test split; (b)
+    the same CLIs at -r 2. Returns the summed launch counts."""
+    blender = flagship_cameras(dev)
+    model = GaussianModel.from_ply(str(FLAGSHIP_PLY), SH_DEGREE, dev)
+    bg = torch.zeros(3, device=dev)
+    want = {name: view_psnr(model, view, bg) for name, view in blender.items()}
+    n_views = len(blender)
+    n_test = len(range(0, n_views, 8))  # llffhold 8
+    for form in ("bin", "txt"):
+        src = READERS_DIR / f"flagship800_{form}"
+        t0 = time.perf_counter()
+        written = colmap_scene.blender_to_colmap(str(FLAGSHIP_SCENE), str(src), binary=form == "bin")
+        scene = Scene(ModelParams(sh_degree=SH_DEGREE, source_path=str(src), model_path="", eval=True),
+                      shuffle=False, device=dev, ply_path=str(FLAGSHIP_PLY))
+        load_s = time.perf_counter() - t0
+        views = scene.getTrainCameras() + scene.getTestCameras()
+        counts = (written, len(scene.getTrainCameras()), len(scene.getTestCameras()))
+        if counts != (n_views, n_views - n_test, n_test):
+            raise AssertionError(f"COLMAP {form}: {counts} (written, train, test), expected "
+                                 f"{(n_views, n_views - n_test, n_test)}")
+        cam_err, worst_dp = 0.0, 0.0
+        for view in views:
+            ref = blender[view.image_name]
+            for key in ("world_view_transform", "full_proj_transform"):
+                cam_err = max(cam_err, float((getattr(view.camera, key) - getattr(ref.camera, key)).abs().max()))
+            if not torch.equal(view.gt_image, ref.gt_image):
+                raise AssertionError(f"COLMAP {form} {view.image_name}: GT differs from the Blender form")
+            worst_dp = max(worst_dp, abs(view_psnr(scene.pool, view, bg) - want[view.image_name]))
+        say(f"[11 readers] (a) flagship800 as COLMAP ({form}): {written} images, "
+            f"{counts[1]} train and {counts[2]} test; camera matrices within {cam_err:.2e} of the "
+            f"Blender form (bar {CAMERA_ATOL}), GT pixels identical, the {len(views)} views' PSNR within "
+            f"{worst_dp:.2e} dB of the Blender form's (bar {PSNR_FORMS_BAR}); written and loaded in "
+            f"{load_s:.2f} s")
+        if cam_err > CAMERA_ATOL or worst_dp > PSNR_FORMS_BAR:
+            raise AssertionError(f"COLMAP {form}: cameras {cam_err}, PSNR {worst_dp} off the Blender form")
+
+    src = READERS_DIR / "flagship800_bin"
+    full, launches, wall = render_and_score(src, READERS_DIR / "model_full", dev)
+    failures = against_jax("(a) full size", full, -1)
+    say(f"[11 readers] (a) render+metrics CLIs (full_eval.py's argv) on the COLMAP test split: "
+        f"mean PSNR {np.mean(list(full['PSNR'].values())):.4f} over {len(full['PSNR'])} views; launches "
+        f"A {launches['A']} B {launches['B']}; {wall:.2f} s")
+    if len(full["PSNR"]) != n_test or launches != only(A=n_test, B=n_test) or failures:
+        raise AssertionError(f"render+metrics on COLMAP: {len(full['PSNR'])} views, launches "
+                             f"{launches}, views off JAX's numbers {failures}")
+    total = dict(launches)
+
+    half_dir = READERS_DIR / "model_half"
+    half, launches, wall = render_and_score(src, half_dir, dev, extra=("-r", 2))
+    gt_shape = read_png(str(half_dir / "test" / METHOD / "gt" / "00000.png")).shape[:2]
+    h, w = next(iter(blender.values())).gt_image.shape[1:]
+    failures = against_jax(f"(b) -r 2, {w // 2}x{h // 2},", half, 2)
+    drop = {n: half["PSNR"][n] - full["PSNR"][n] for n in sorted(half["PSNR"])}
+    say(f"[11 readers] (b) -r 2: {len(drop)} views at {w // 2}x{h // 2}, PSNR against full size "
+        + ", ".join(f"{d:+.4f}" for d in drop.values())
+        + f" dB; launches A {launches['A']} B {launches['B']}; {wall:.2f} s")
+    if gt_shape != (h // 2, w // 2) or sorted(drop) != sorted(full["PSNR"]) or failures \
+            or launches != only(A=n_test, B=n_test):
+        raise AssertionError(f"-r 2: GT {gt_shape}, views {sorted(drop)}, launches {launches}, "
+                             f"views off JAX's numbers {failures}")
+    return {k: total[k] + launches[k] for k in total}
+
+
+def phase_readers_capture(dev, model) -> dict:
+    """(c) A COLMAP capture of the flagship at 2000x1500 through the
+    training CLI from scratch: the 1.6K downscale."""
+    src = READERS_DIR / "capture2000"
+    fovx, poses = colmap_scene.blender_poses(str(FLAGSHIP_SCENE), "train")
+    poses = poses[:CAPTURE_VIEWS]
+    xyz, rgb = colmap_scene.point_cloud_u8(str(FLAGSHIP_SCENE / "points3d.ply"))
+    t0 = time.perf_counter()
+    colmap_scene.capture_scene(model, poses, str(src), CAPTURE_W, CAPTURE_H, fovx, SH_DEGREE, xyz, rgb)
+    capture_s = time.perf_counter() - t0
+    out_dir = READERS_DIR / "train_capture"
+    argv = ["-s", src, "-m", out_dir, "--eval", "--iterations", SCRATCH_ITERS,
+            "--densify_from_iter", 20, "--densification_interval", 25, "--densify_until_iter", 90,
+            "--test_iterations", 10, SCRATCH_ITERS, "--save_iterations", SCRATCH_ITERS,
+            "--checkpoint_iterations", SCRATCH_ITERS, "--device", dev.type]
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_cli(train_main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    rows = [r.split("\t") for r in (out_dir / "losses.tsv").read_text().strip().splitlines()[1:]]
+    (it0, l1_0, psnr_0, n_0), (it1, l1_1, psnr_1, n_1) = rows
+    n_test = len(range(0, len(poses), 8))  # llffhold 8
+    reports = len(rows) * (n_test + 25)  # the test views and train views 5..29
+    expected = only(A=SCRATCH_ITERS + reports, B=SCRATCH_ITERS, C=SCRATCH_ITERS, D=SCRATCH_ITERS)
+    rate = [ln for ln in out.splitlines() if ln.startswith("Trained ")]
+    say(f"[11 readers] (c) capture: {len(poses)} views at {CAPTURE_W}x{CAPTURE_H} rendered and "
+        f"written in {capture_s:.2f} s; train CLI from {len(xyz)} points: test L1 {float(l1_0):.5f} -> "
+        f"{float(l1_1):.5f}, PSNR {float(psnr_0):.3f} -> {float(psnr_1):.3f}, Gaussians {n_0} -> {n_1}; "
+        f"{rate[0] if rate else 'no rate line'}; call {wall:.2f} s; launches {launches}")
+    if not float(l1_1) < float(l1_0) or n_1 == n_0:
+        raise AssertionError(f"capture training: L1 {l1_0} -> {l1_1}, Gaussians {n_0} -> {n_1}")
+    if launches != expected:
+        raise AssertionError(f"capture training launches {launches}, expected {expected}")
+
+    t0 = time.perf_counter()
+    scene = Scene(ModelParams(sh_degree=SH_DEGREE, source_path=str(src), model_path="", eval=True),
+                  shuffle=False, device=dev)
+    load_s = time.perf_counter() - t0
+    views = scene.getTrainCameras() + scene.getTestCameras()
+    sizes = {tuple(v.gt_image.shape) for v in views} | {(3, v.camera.image_height, v.camera.image_width)
+                                                        for v in views}
+    want = (3, CAPTURE_TRAIN_SIZE[1], CAPTURE_TRAIN_SIZE[0])
+    if sizes != {want}:
+        raise AssertionError(f"capture cameras and GT at {sizes}, expected {want}")
+    view = scene.getTrainCameras()[0]
+    cam, gt = view.camera, view.gt_image
+    bg = torch.zeros(3, device=dev)
+    state = TrainState(model=scene.pool, adam=AdamState.init(scene.pool.params()),
+                       stats=DensifyStats.zeros(scene.pool.capacity, dev))
+    lrs = make_lr_dict(OptimizationParams(), scene.cameras_extent, 1)
+    step_ms = time_cuda(lambda: train_step(state, cam, gt, bg, lrs, 0), 5)
+    size = f"{CAPTURE_TRAIN_SIZE[0]}x{CAPTURE_TRAIN_SIZE[1]}"
+    say(f"[11 readers] (c) scene load ({len(views)} views from {CAPTURE_W}x{CAPTURE_H} to {size}) "
+        f"{load_s:.2f} s; one training step at init ({scene.pool.num_alive} Gaussians, {size}, "
+        f"train view 0) {step_ms:.3f} ms")
+    trained = load_checkpoint(str(out_dir / f"chkpnt{SCRATCH_ITERS}.npz"), dev)[0].model
+    for label, m in (("at init", scene.pool), (f"at {SCRATCH_ITERS}", trained)):
+        with torch.no_grad():
+            inputs = m.render_inputs(0)
+        view_kernel_ms("[11 readers]", f"(c) {size} train view 0 {label}", inputs, cam, gt, bg)
+    return launches
+
+
+def phase_readers_zero123(dev, model) -> dict:
+    """(d) A Zero123 scene of the flagship through the training CLI with
+    the argv of `python -m sgs_tpu_torch.train_zero123`: the structure
+    stays frozen."""
+    src = READERS_DIR / "zero123"
+    _, poses = colmap_scene.blender_poses(str(FLAGSHIP_SCENE), "train")
+    glb = colmap_scene.zero123_scene(model, poses[:ZERO123_VIEWS], str(src), ZERO123_SIZE, SH_DEGREE)
+    rgba = read_png(str(src / "000.png"))
+    out_dir = READERS_DIR / "train_zero123"
+    argv = train_zero123.train_argv(str(src), glb, str(out_dir), iterations=ZERO123_ITERS)
+    reset_counts()
+    t0 = time.perf_counter()
+    run_cli(train_main, [*argv, "--device", dev.type])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    init = load_point_cloud_ply(str(out_dir / "input.ply"))[0]
+    snap = load_gaussian_ply(str(out_dir / "point_cloud" / f"iteration_{ZERO123_ITERS}" / "point_cloud.ply"),
+                             SH_DEGREE)
+    say(f"[11 readers] (d) Zero123: {ZERO123_VIEWS} RGBA views at {ZERO123_SIZE}x{ZERO123_SIZE} "
+        f"(alpha {int(rgba[..., 3].min())}..{int(rgba[..., 3].max())}), a GLB of {len(init)} faces; "
+        f"{ZERO123_ITERS} iterations with --freeze_xyz: xyz equal to the init bit for bit: "
+        f"{np.array_equal(snap['xyz'], init)}; call {wall:.2f} s; launches {launches}")
+    if rgba.shape[2] != 4 or not np.array_equal(snap["xyz"], init):
+        raise AssertionError(f"Zero123: image {rgba.shape}, or the frozen xyz moved")
+    # the CLI's default test, save and checkpoint lists are one list, which
+    # takes --iterations (as in train.py): one report at the end
+    steps, report = ZERO123_ITERS, (ZERO123_VIEWS - 10) + 25
+    if launches != only(A=steps + report, B=steps, C=steps, D=steps):
+        raise AssertionError(f"Zero123 training launches {launches}, expected A {steps} + {report}, "
+                             f"B-D {steps}")
+    return launches
+
+
+def phase_readers(dev) -> dict:
+    """Phase 11: the scene readers; returns A-D's launches summed over its
+    four runs."""
+    t0 = time.perf_counter()
+    shutil.rmtree(READERS_DIR, ignore_errors=True)
+    total = phase_readers_colmap(dev)
+    model = GaussianModel.from_ply(str(FLAGSHIP_PLY), SH_DEGREE, dev)
+    for run in (phase_readers_capture, phase_readers_zero123):
+        launches = run(dev, model)
+        total = {k: total[k] + launches[k] for k in total}
+    say(f"[11 readers] phase wall {time.perf_counter() - t0:.2f} s; launches over (a)-(d) {total}")
+    return total
+
+
 def main(device: str = "cuda") -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1447,7 +1737,10 @@ def main(device: str = "cuda") -> int:
     phase_lgm_render(dev)
     phase_lgm_step(dev)
     phase_lgm_train(dev)
-    say(f"[11 done] chip_smoke wall {time.perf_counter() - t_start:.2f} s")
+    readers = phase_readers(dev)
+    for entry, k in zip(kernels, "ABCD"):
+        entry["readers_launches"] = readers[k]
+    say(f"[12 done] chip_smoke wall {time.perf_counter() - t_start:.2f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -76,8 +76,10 @@ def read_png(path: str) -> np.ndarray:
         raise ValueError(f"{path}: missing IHDR chunk")
     width, height, depth, color, compression, filt, interlace = header
     if depth != 8 or color not in _CHANNELS or compression or filt or interlace:
+        kind = ("palette" if color == 3 else f"{depth}-bit" if depth != 8
+                else "interlaced" if interlace else f"color type {color}")
         raise ValueError(
-            f"{path}: unsupported PNG (bit depth {depth}, color type {color}, "
+            f"{path}: unsupported PNG: {kind} (bit depth {depth}, color type {color}, "
             f"interlace {interlace}); only 8-bit non-interlaced gray, gray-alpha, "
             "RGB and RGBA are read"
         )

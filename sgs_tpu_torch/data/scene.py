@@ -1,20 +1,22 @@
 """Scene: the cameras, the scene extent and the initial Gaussians of a
-Blender (NeRF-synthetic) dataset. Port of the Blender branch of
-`sgs_tpu/data/scene.py` and its reader (`read_nerf_synthetic_scene`).
+dataset. Port of `sgs_tpu/data/scene.py`.
 
-In the JAX package's order: cameras read (the test views merged into
-train when `eval` is False), input.ply and cameras.json written into the
-model directory unless a trained iteration is loaded, train and test
-lists shuffled with the global `random` (the training CLI seeds it)
-unless `shuffle` is False, the extent from the NeRF++ normalisation
-radius, and the pool either loaded from
-point_cloud/iteration_<load_iteration>/point_cloud.ply (-1: the latest)
-or built from points3d.ply (a random 100k-point cloud is written first
-when the scene has none). With `downsample_init` d != 1 the init cloud is
-first cut to round(n / d) points drawn by `np.random.choice(n, ...,
-replace=False)` from the global numpy state, as the JAX Scene draws
-them (the CLIs seed it), and `init_pcd` holds the cloud the pool was
-built from. COLMAP and mesh scenes are not ported yet and raise.
+In the JAX package's order: the scene type from its marker file
+(`mesh3d.ply`: a mesh scene, which raises without an obj_path as JAX's
+does; `000.npy`: Zero123 with `obj_path` and `mesh_max_faces`; `sparse`:
+COLMAP with `images`; `transforms_train.json`: Blender; anything else
+raises), input.ply and cameras.json written into the model directory
+unless a trained iteration is loaded, train and test lists shuffled with
+the global `random` (the training CLI seeds it) unless `shuffle` is
+False, the extent from the NeRF++ normalisation radius, the cameras
+loaded at `resolution` (`camera_utils.load_cam`), and the pool either
+loaded from point_cloud/iteration_<load_iteration>/point_cloud.ply (-1:
+the latest) or built from the scene's point cloud. With
+`downsample_init` d != 1 the init cloud is first cut to round(n / d)
+points drawn by `np.random.choice(n, ..., replace=False)` from the global
+numpy state, as the JAX Scene draws them (the CLIs seed it), and
+`init_pcd` holds the cloud the pool was built from. `scene_info` keeps
+what the reader returned.
 """
 
 from __future__ import annotations
@@ -23,58 +25,21 @@ import json
 import os
 import random
 import shutil
-from typing import List, NamedTuple, Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
-from sgs_tpu_torch.core.projection import fov2focal, world_to_view
-from sgs_tpu_torch.core.sh import C0
 from sgs_tpu_torch.data import ply as ply_io
-from sgs_tpu_torch.data.readers import CameraInfo, LoadedCamera, load_camera, read_cameras_from_transforms
+from sgs_tpu_torch.data.camera_utils import LoadedCamera, camera_list_from_infos, camera_to_json
+from sgs_tpu_torch.data.readers import (
+    PointCloud,
+    SceneInfo,
+    read_colmap_scene,
+    read_mesh_scene,
+    read_nerf_synthetic_scene,
+)
 from sgs_tpu_torch.models.gaussians import GaussianModel
-
-
-class PointCloud(NamedTuple):
-    points: np.ndarray
-    colors: np.ndarray
-    normals: np.ndarray
-
-
-def get_nerfpp_norm(cam_infos: List[CameraInfo]) -> dict:
-    centers = np.stack([np.linalg.inv(world_to_view(c.R, c.T))[:3, 3] for c in cam_infos])
-    avg = centers.mean(axis=0)
-    diagonal = float(np.max(np.linalg.norm(centers - avg, axis=1)))
-    return {"translate": -avg, "radius": diagonal * 1.1}
-
-
-def camera_to_json(idx: int, cam: CameraInfo) -> dict:
-    rt = np.zeros((4, 4))
-    rt[:3, :3] = cam.R.T
-    rt[:3, 3] = cam.T
-    rt[3, 3] = 1.0
-    w2c = np.linalg.inv(rt)
-    return {
-        "id": idx,
-        "img_name": cam.image_name,
-        "width": cam.width,
-        "height": cam.height,
-        "position": w2c[:3, 3].tolist(),
-        "rotation": [r.tolist() for r in w2c[:3, :3]],
-        "fy": fov2focal(cam.FovY, cam.height),
-        "fx": fov2focal(cam.FovX, cam.width),
-    }
-
-
-def _point_cloud(path: str):
-    ply_path = os.path.join(path, "points3d.ply")
-    if not os.path.exists(ply_path):
-        num_pts = 100_000
-        xyz = np.random.random((num_pts, 3)) * 2.6 - 1.3
-        shs = np.random.random((num_pts, 3)) / 255.0
-        rgb = shs.astype(np.float32) * np.float32(C0) + np.float32(0.5)
-        ply_io.save_point_cloud_ply(ply_path, xyz.astype(np.float32), (rgb * 255).astype(np.uint8))
-    return ply_path, ply_io.load_point_cloud_ply(ply_path)
 
 
 def search_for_max_iteration(folder: str) -> Optional[int]:
@@ -82,6 +47,22 @@ def search_for_max_iteration(folder: str) -> Optional[int]:
         return None
     iters = [int(name.split("_")[-1]) for name in os.listdir(folder) if name.startswith("iteration_")]
     return max(iters) if iters else None
+
+
+def read_scene(args) -> SceneInfo:
+    """The reader that the source directory's marker file selects."""
+    src = args.source_path
+    if os.path.exists(os.path.join(src, "mesh3d.ply")):
+        return read_mesh_scene(src, args.white_background, args.eval,
+                               decimate_factor=args.decimate_factor)
+    if os.path.exists(os.path.join(src, "000.npy")):
+        return read_mesh_scene(src, args.white_background, args.eval, obj_path=args.obj_path,
+                               mesh_max_faces=args.mesh_max_faces)
+    if os.path.exists(os.path.join(src, "sparse")):
+        return read_colmap_scene(src, args.images, args.eval)
+    if os.path.exists(os.path.join(src, "transforms_train.json")):
+        return read_nerf_synthetic_scene(src, args.white_background, args.eval)
+    raise ValueError(f"Could not recognize scene type in {src}!")
 
 
 class Scene:
@@ -92,7 +73,6 @@ class Scene:
                  device: "str | torch.device" = "cuda", ply_path: Optional[str] = None,
                  downsample_init: float = 1.0):
         args = model_params
-        src = args.source_path
         self.model_path = args.model_path
         self.loaded_iter = None
         if load_iteration:
@@ -101,40 +81,33 @@ class Scene:
             else:
                 self.loaded_iter = load_iteration
             print(f"Loading trained model at iteration {self.loaded_iter}")
-        if not os.path.exists(os.path.join(src, "transforms_train.json")):
-            raise NotImplementedError(
-                f"{src}: only Blender (transforms_train.json) scenes are ported"
-            )
-        train = read_cameras_from_transforms(src, "transforms_train.json", args.white_background)
-        test = (
-            read_cameras_from_transforms(src, "transforms_test.json", args.white_background)
-            if os.path.exists(os.path.join(src, "transforms_test.json")) else []
-        )
-        if not args.eval:
-            train, test = train + test, []
-        norm = get_nerfpp_norm(train)
-        input_ply, cloud = _point_cloud(src)
+        scene_info = read_scene(args)
+        self.scene_info = scene_info
 
         if not self.loaded_iter and self.model_path:
             os.makedirs(self.model_path, exist_ok=True)
-            shutil.copyfile(input_ply, os.path.join(self.model_path, "input.ply"))
-            cams = list(test) + list(train)
+            shutil.copyfile(scene_info.ply_path, os.path.join(self.model_path, "input.ply"))
+            cams = list(scene_info.test_cameras) + list(scene_info.train_cameras)
             with open(os.path.join(self.model_path, "cameras.json"), "w") as f:
                 json.dump([camera_to_json(i, c) for i, c in enumerate(cams)], f)
         if shuffle:
-            random.shuffle(train)
-            random.shuffle(test)
+            random.shuffle(scene_info.train_cameras)
+            random.shuffle(scene_info.test_cameras)
 
-        self.cameras_extent: float = norm["radius"]
-        self.train_cameras: List[LoadedCamera] = [load_camera(c, args.resolution, device) for c in train]
-        self.test_cameras: List[LoadedCamera] = [load_camera(c, args.resolution, device) for c in test]
+        self.cameras_extent: float = scene_info.nerf_normalization["radius"]
+        self.train_cameras: List[LoadedCamera] = camera_list_from_infos(
+            scene_info.train_cameras, 1.0, args.resolution, device)
+        self.test_cameras: List[LoadedCamera] = camera_list_from_infos(
+            scene_info.test_cameras, 1.0, args.resolution, device)
 
         if self.loaded_iter or ply_path:
             ply_path = ply_path or os.path.join(
                 self.model_path, "point_cloud", f"iteration_{self.loaded_iter}", "point_cloud.ply")
             self.pool = GaussianModel.from_ply(ply_path, args.sh_degree, device)
         else:
-            pcd = PointCloud(*cloud)
+            pcd = scene_info.point_cloud
+            if pcd is None:
+                raise ValueError("scene has no initial point cloud")
             if downsample_init != 1.0:
                 num = round(len(pcd.points) / downsample_init)
                 idx = np.random.choice(len(pcd.points), num, replace=False)

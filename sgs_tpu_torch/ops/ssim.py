@@ -255,7 +255,11 @@ class SSIMFunction(torch.autograd.Function):
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     """Mean SSIM over a (3, H, W) pair, differentiable in both: Kernels B
-    and D on the card, their plain versions on the CPU."""
+    and D on the card, their plain versions on the CPU. A (1, H, W) image
+    is broadcast against the other, as the JAX package's `ssim` does (a
+    gray COLMAP image's GT)."""
+    if img1.shape != img2.shape:
+        img1, img2 = torch.broadcast_tensors(img1, img2)
     return SSIMFunction.apply(img1.to(torch.float32).contiguous(),
                               img2.to(torch.float32).contiguous())
 

@@ -1,5 +1,6 @@
 """Render the train/test views of a trained model to PNGs on the card.
-Port of the repository's `render.py` for NeRF-synthetic scenes.
+Port of the repository's `render.py`, for every scene the port's `Scene`
+reads (Blender, COLMAP, Zero123) at every `-r/--resolution`.
 
     python -m sgs_tpu_torch.render -m <model_dir> [-s <scene>] [--iteration N]
         [--skip_train] [--skip_test] [--quiet] [--eval | --no-eval] [--ply <file>]
@@ -29,7 +30,7 @@ import torch
 
 from sgs_tpu_torch.core.device import resolve_device
 from sgs_tpu_torch.data.png import write_png
-from sgs_tpu_torch.data.readers import LoadedCamera
+from sgs_tpu_torch.data.camera_utils import LoadedCamera
 from sgs_tpu_torch.data.scene import Scene
 from sgs_tpu_torch.models.gaussians import GaussianModel
 from sgs_tpu_torch.train.loop import eval_render
@@ -43,10 +44,15 @@ from sgs_tpu_torch.utils.config import (
 )
 
 
-def save_png(path: str, image_chw: torch.Tensor) -> None:
-    """Quantise as the JAX render.py does: clip, *255 + 0.5, truncate."""
+def quantize(image_chw: torch.Tensor) -> np.ndarray:
+    """(C, H, W) float -> (H, W, C) uint8 as the JAX render.py quantises:
+    clip, *255 + 0.5, truncate."""
     arr = np.clip(image_chw.detach().cpu().numpy(), 0.0, 1.0)
-    write_png(path, (arr.transpose(1, 2, 0) * 255 + 0.5).astype(np.uint8))
+    return (arr.transpose(1, 2, 0) * 255 + 0.5).astype(np.uint8)
+
+
+def save_png(path: str, image_chw: torch.Tensor) -> None:
+    write_png(path, quantize(image_chw))
 
 
 def render_set(out_dir: Path, views: List[LoadedCamera], model: GaussianModel,

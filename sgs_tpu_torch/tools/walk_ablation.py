@@ -22,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-from sgs_tpu_torch.data.readers import read_nerf_synthetic_split
+from sgs_tpu_torch.data.camera_utils import read_nerf_synthetic_split
 from sgs_tpu_torch.models.gaussians import GaussianModel
 from sgs_tpu_torch.ops import build, flat_raster
 from sgs_tpu_torch.ops import ssim as ssim_ops

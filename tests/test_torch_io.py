@@ -16,6 +16,7 @@ from PIL import Image
 
 from sgs_tpu.data import camera_utils, readers
 from sgs_tpu.data.ply import load_gaussian_ply as jax_load_gaussian_ply
+from sgs_tpu_torch.data import camera_utils as port_camera_utils
 from sgs_tpu_torch.data import png
 from sgs_tpu_torch.data import readers as port_readers
 from sgs_tpu_torch.data.ply import load_gaussian_ply
@@ -118,7 +119,7 @@ def _compare_scene(path, split, white):
         np.testing.assert_array_equal(g.R, w.R)
         np.testing.assert_array_equal(g.T, w.T)
         lc_w = camera_utils.load_cam(-1, 0, w, 1.0)
-        lc_g = port_readers.load_camera(g, -1, device="cpu")
+        lc_g = port_camera_utils.load_cam(-1, 0, g, 1.0, device="cpu")
         np.testing.assert_array_equal(lc_g.gt_image.numpy(), lc_w.gt_image)
         for key in ("world_view_transform", "full_proj_transform", "camera_center",
                     "tanfovx", "tanfovy"):
@@ -149,9 +150,15 @@ def test_rgba_scene_matches_jax(tmp_path, white):
     _compare_scene(str(tmp_path), "test", white)
 
 
-def test_other_resolutions_raise():
-    info = port_readers.read_cameras_from_transforms(
-        os.path.join(ROOT, "data", "flagship800"), "transforms_test.json", False
-    )[0]
-    with pytest.raises(NotImplementedError):
-        port_readers.load_camera(info, 2, device="cpu")
+@pytest.mark.parametrize("resolution,error", [(0, ZeroDivisionError), (-2, ValueError)])
+def test_other_resolutions_raise(resolution, error):
+    """A resolution that gives no image size raises in both packages (the
+    factors, -1 and target widths are held to JAX in
+    tests/test_torch_camera_utils.py)."""
+    path = os.path.join(ROOT, "data", "flagship800")
+    info = port_readers.read_cameras_from_transforms(path, "transforms_test.json", False)[0]
+    want = readers.read_cameras_from_transforms(path, "transforms_test.json", False)[0]
+    with pytest.raises(error):
+        camera_utils.load_cam(resolution, 0, want, 1.0)
+    with pytest.raises(error):
+        port_camera_utils.load_cam(resolution, 0, info, 1.0, device="cpu")

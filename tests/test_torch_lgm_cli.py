@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from sgs_tpu_torch.data.ply import load_gaussian_ply
-from sgs_tpu_torch.data.readers import read_nerf_synthetic_split
+from sgs_tpu_torch.data.camera_utils import read_nerf_synthetic_split
 from sgs_tpu_torch.models.latent import LatentGaussianModel
 from sgs_tpu_torch.ops.ssim import psnr
 from sgs_tpu_torch.train.lgm_trainer import load_lgm_checkpoint
