@@ -117,9 +117,34 @@ Phases:
      `python -m sgs_tpu_torch.train_zero123`'s argv for 30 iterations:
      xyz stays the init's bit for bit. The launch counts are reset before
      and read after each run: A-D once a step, A also once per report
-     view, A and B once per view of the render and metrics CLIs;
- 12. a `{"kernels": [...]}` line (A-D also with `readers_launches`, their
-     launches over phase 11), the device line, and last the result line
+     view, A and B once per view of the render and metrics CLIs; the
+     flagship's PNGs are decoded once for (a)'s Blender form and both
+     COLMAP copies;
+ 12. the evaluation chain: (a) `python -m sgs_tpu_torch.get_psnr` on the
+     committed LGM snapshot over all 56 views of data/lgm400, through the
+     `.npy` that the port's `vectorized` writes and the npz that its
+     checkpoint writer writes, each held to the JAX package's get_psnr.py
+     on the same inputs (`JAX_GET_PSNR`, runs/get_psnr_lgm400_jax/) within
+     1e-6 L1 and 1e-3 dB, test and train; it renders with the oracle and
+     launches no kernel; (b) the oracle (`render(mode="reference")`)
+     against Kernel A on flagship test views 0 and 1 and the LGM's 8 test
+     views: within 3e-5 at every pixel but those that
+     `tools/oracle_times.py::explain_pixels` accounts for by JAX's two
+     f32 arrangements of the quadratic form (under 1% of the pixels), and
+     the oracle's ms per view beside A's; (c) the render CLI with
+     `--rasterizer reference`, then the metrics CLI, on the LGM snapshot,
+     held per view to assets/lgm/per_view.json; (e) `python -m
+     sgs_tpu_torch.full_eval --skip_training --skip_rendering` as a
+     subprocess over the model directories of phases 4 and 10, whose
+     results.json must not change; (d) LPIPS through the metrics CLI with
+     seeded synthetic weights on phase 4's renders, one view against the
+     CPU within rtol 1e-4, and ms per 800x800 pair; (f)
+     `training_report(full_train_set=True, mode="tiled")` on the LGM
+     snapshot: A once per view, B never, within 1e-4 dB of (a)'s oracle
+     numbers. The launch counts are reset before and read after each run;
+ 13. a `{"kernels": [...]}` line (A-D also with `readers_launches`, their
+     launches over phase 11, and A and B with `eval_launches`, theirs over
+     phase 12), the device line, and last the result line
      `{"ok": true, "device": {...}}`.
 
 Any failed phase raises and the script exits nonzero. It needs the
@@ -132,7 +157,9 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import random
+import re
 import shutil
 import subprocess
 import sys
@@ -149,10 +176,13 @@ from sgs_tpu_torch.data.camera_utils import load_cam, read_nerf_synthetic_split
 from sgs_tpu_torch.data.png import read_png
 from sgs_tpu_torch.data.readers import read_cameras_from_transforms
 from sgs_tpu_torch.data.scene import Scene
+from sgs_tpu_torch.get_psnr import main as get_psnr_main
 from sgs_tpu_torch.metrics import evaluate, read_image
+from sgs_tpu_torch.metrics import lpips as lpips_mod
 from sgs_tpu_torch.metrics import main as metrics_main
 from sgs_tpu_torch.models.gaussians import PARAM_FIELDS, DensifyStats, GaussianModel, default_capacity
 from sgs_tpu_torch.models.latent import LatentGaussianModel
+from sgs_tpu_torch.models.vectorized import vectorized
 from sgs_tpu_torch.ops import build, exp_forward, flat_raster, gather, ssim as ssim_ops
 from sgs_tpu_torch.ops.ssim import psnr
 from sgs_tpu_torch.render.cli import main as render_main
@@ -162,7 +192,7 @@ from sgs_tpu_torch.render.tiled import bin_gaussians, kernel_args
 from sgs_tpu_torch import train_zero123
 from sgs_tpu_torch.tools import (colmap_scene, exp_bounds, exp_dma_gather, exp_fwd, exp_fwd2,
                                  exp_gather_layout, exp_scene, exp_transposed, exp_vmem_gather,
-                                 gather_inputs, l2_rate, scan_ablation)
+                                 gather_inputs, l2_rate, oracle_times, scan_ablation)
 # the bounds' peak rates (H100 SXM, NVIDIA's data sheet) are defined there
 from sgs_tpu_torch.tools.exp_bounds import bound_ms
 from sgs_tpu_torch.tools.ssim_times import time_ms
@@ -171,6 +201,7 @@ from sgs_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from sgs_tpu_torch.train import lgm_trainer
 from sgs_tpu_torch.train.loop import TrainState, eval_render, train_step
 from sgs_tpu_torch.train.optim import AdamState, TreeAdamState, adam_tree_update, adam_update, make_lr_dict
+from sgs_tpu_torch.train.trainer import training_report
 from sgs_tpu_torch.train_lgm import main as train_lgm_main
 from sgs_tpu_torch.utils.config import ModelParams, OptimizationParams, PipelineParams, save_cfg_args
 
@@ -264,6 +295,34 @@ JAX_COLMAP_SSIM = {
 CAPTURE_W, CAPTURE_H, CAPTURE_VIEWS = 2000, 1500, 24
 CAPTURE_TRAIN_SIZE = (1600, 1200)  # what the 1.6K downscale must give
 ZERO123_SIZE, ZERO123_VIEWS, ZERO123_ITERS = 256, 12, 30
+# Phase 12, the evaluation chain. The JAX package's get_psnr.py on the
+# committed LGM snapshot, both routes (`vec`: the (16000, 14) array JAX's
+# vectorized wrote; `npz`: JAX's save_checkpoint of the snapshot at
+# iteration 3000), rendered with the oracle as get_psnr.py renders; copied
+# from runs/get_psnr_lgm400_jax/ (run.py writes the inputs and runs both,
+# run.log holds the commands and output, <route>/losses.tsv each test
+# row), and held equal to those files by tests/test_torch_get_psnr.py.
+# (L1, PSNR) of the 8 test views and of all 48 train views.
+JAX_GET_PSNR = {
+    "vec": {"iteration": 0, "test": (0.049321080558001995, 21.30032992362976),
+            "train": (0.04729995558348795, 21.54839567343394), "count": 16000},
+    "npz": {"iteration": 3000, "test": (0.04932108288630843, 21.30032992362976),
+            "train": (0.04729995597153902, 21.54839567343394), "count": 16000},
+}
+GET_PSNR_L1_BAR, GET_PSNR_DB_BAR = 1e-6, 1e-3
+# the oracle's image against Kernel A's: the repository's image bar at
+# every pixel but those that `tools/oracle_times.py::explain_pixels`
+# accounts for by JAX's two f32 arrangements of the quadratic form (each
+# image within the bar of its arrangement replayed one Gaussian at a time
+# over the oracle's depth order, nothing dropped by binning), which must
+# stay under NEAR_CUT_SHARE of the pixels; and Kernel A's report against
+# the oracle's
+ORACLE_ATOL, REPORT_DB_BAR = oracle_times.IMAGE_ATOL, 1e-4
+ORACLE_FLAGSHIP_VIEWS = (0, 1)
+EVAL_DIR = ROOT / "build" / "smoke" / "eval"
+# seeded synthetic LPIPS weights (metrics/lpips.py::synthetic_weights); the
+# card's value against the CPU's on one view
+LPIPS_SEED, LPIPS_RTOL = 0, 1e-4
 
 
 def say(*parts) -> None:
@@ -999,7 +1058,7 @@ def phase_timing(dev, errs: dict, launches: dict, views, step: dict) -> list:
         out = render(v.camera, model.render_inputs(SH_DEGREE), bg)
         gt = read_image(SMOKE_DIR / "test" / METHOD / "gt" / f"{i:05d}.png", dev)
         q = read_image(SMOKE_DIR / "test" / METHOD / "renders" / f"{i:05d}.png", dev)
-        render_ms = time_cuda(lambda: eval_render(model, v.camera, bg, SH_DEGREE), 3)
+        render_ms = time_cuda(lambda: eval_render(model, v.camera, bg, SH_DEGREE, "tiled"), 3)
         ssim_ms = time_cuda(lambda: ssim_ops.ssim(q, gt), 20)
         p = project_and_shade(v.camera, model.render_inputs(SH_DEGREE))
         w, h = v.camera.image_width, v.camera.image_height
@@ -1191,8 +1250,11 @@ def phase_experiments(dev, errs: dict, old_alpha) -> list:
     walked, every = exp_bounds.scene_counts(sc, info["walked"]), exp_bounds.scene_counts(sc)
     where = {"E": ("exp_forward E (hs, krows 8)", "scripts/exp_fwd.py:210", walked, "hs"),
              "E mxu": ("exp_forward E (mxu)", "scripts/exp_fwd.py:210", walked, "mxu"),
+             "E nocp": ("exp_forward E (nocp)", "scripts/exp_fwd.py:210",
+                        exp_bounds.scan_counts(sc, "nocp"), "nocp"),
              "F": ("exp_forward F (alpha, krows 8, out_cols 8)", "scripts/exp_fwd2.py:84", every, "alpha"),
-             "G": ("exp_forward G (hs, krows 8)", "scripts/exp_transposed.py:147", walked, "hs")}
+             "G": ("exp_forward G (hs, krows 8)", "scripts/exp_transposed.py:147", walked, "hs"),
+             "G mxu": ("exp_forward G (mxu)", "scripts/exp_transposed.py:147", walked, "mxu")}
     bounds = {k: exp_bounds.forward(v[1], v[0], v[2], v[3]) for k, v in where.items()}
     # Kernel A on the same bins, for the comparison: its bound as in phase 7
     ka = sc["kernel_a"]
@@ -1303,23 +1365,25 @@ def phase_gather(dev, errs: dict) -> list:
              "library_ms": lib_ms[k]} for k in "HIJK"]
 
 
-def phase_lgm_render(dev) -> None:
-    """(a) The committed LGM snapshot through the render and metrics CLIs,
-    held per view to the JAX package's numbers."""
+def phase_lgm_render(dev, out_dir: Path = LGM_RENDER_DIR, rasterizer: str = "tiled",
+                     tag: str = "[10 lgm] snapshot") -> dict:
+    """(a) The committed LGM snapshot through the render (with
+    `--rasterizer rasterizer`) and metrics CLIs, held per view to the JAX
+    package's numbers; returns the launch counts."""
     per_view = json.loads(LGM_PER_VIEW.read_text())[LGM_METHOD]
     # runs/lgm_r5/cfg_args, with this checkout's paths
-    save_cfg_args(str(LGM_RENDER_DIR), ModelParams(
-        sh_degree=0, source_path=str(LGM_SCENE), model_path=str(LGM_RENDER_DIR),
+    save_cfg_args(str(out_dir), ModelParams(
+        sh_degree=0, source_path=str(LGM_SCENE), model_path=str(out_dir),
         white_background=False, eval=True))
     reset_counts()
     t0 = time.perf_counter()
-    run_cli(render_main, ["-m", LGM_RENDER_DIR, "--ply", LGM_PLY, "--sh_degree", 0,
-                          "--iteration", 3000, "--skip_train", "--device", dev.type])
-    run_cli(metrics_main, ["-m", LGM_RENDER_DIR, "--device", dev.type])
+    run_cli(render_main, ["-m", out_dir, "--ply", LGM_PLY, "--sh_degree", 0, "--iteration", 3000,
+                          "--skip_train", "--rasterizer", rasterizer, "--device", dev.type])
+    run_cli(metrics_main, ["-m", out_dir, "--device", dev.type])
     torch.cuda.synchronize()
     launches = read_counts()
     wall = time.perf_counter() - t0
-    mine = json.loads((LGM_RENDER_DIR / "per_view.json").read_text())[LGM_METHOD]
+    mine = json.loads((out_dir / "per_view.json").read_text())[LGM_METHOD]
     names = sorted(per_view["PSNR"])
     if sorted(mine["PSNR"]) != names:
         raise AssertionError(f"rendered views {sorted(mine['PSNR'])} != {names}")
@@ -1327,20 +1391,23 @@ def phase_lgm_render(dev) -> None:
     for name in names:
         dp = mine["PSNR"][name] - per_view["PSNR"][name]
         ds = mine["SSIM"][name] - per_view["SSIM"][name]
-        say(f"[10 lgm] snapshot {name}: PSNR {mine['PSNR'][name]:.4f} (JAX {per_view['PSNR'][name]:.4f}, "
+        say(f"{tag} {name}: PSNR {mine['PSNR'][name]:.4f} (JAX {per_view['PSNR'][name]:.4f}, "
             f"d {dp:+.5f}) SSIM {mine['SSIM'][name]:.6f} (JAX {per_view['SSIM'][name]:.6f}, d {ds:+.2e})")
         if abs(dp) > PSNR_BAR or abs(ds) > SSIM_BAR:
             failures.append(name)
-    got = json.loads((LGM_RENDER_DIR / "results.json").read_text())[LGM_METHOD]
+    got = json.loads((out_dir / "results.json").read_text())[LGM_METHOD]
     results = json.loads(LGM_RESULTS.read_text())[LGM_METHOD]
-    say(f"[10 lgm] snapshot mean: PSNR {got['PSNR']:.7f} (JAX {results['PSNR']:.7f}, "
+    say(f"{tag} mean: PSNR {got['PSNR']:.7f} (JAX {results['PSNR']:.7f}, "
         f"d {got['PSNR'] - results['PSNR']:+.2e}) SSIM {got['SSIM']:.7f} (JAX {results['SSIM']:.7f}, "
         f"d {got['SSIM'] - results['SSIM']:+.2e}); launches A {launches['A']} B {launches['B']}; "
         f"render+metrics CLIs {wall:.2f} s")
     if failures:
         raise AssertionError(f"LGM views off the JAX numbers: {failures}")
-    if launches != only(A=len(names), B=len(names)):
-        raise AssertionError(f"LGM render launches {launches}, expected A and B {len(names)}")
+    # the oracle launches no kernel; the metrics launch B once a view
+    expected = only(A=len(names) if rasterizer == "tiled" else 0, B=len(names))
+    if launches != expected:
+        raise AssertionError(f"LGM render launches {launches}, expected {expected}")
+    return launches
 
 
 def lgm_init(dev):
@@ -1489,20 +1556,23 @@ def phase_lgm_train(dev) -> None:
         lgm_kernel_ms(f"iteration {it}", model, view.camera, view.gt_image, bg)
 
 
-def flagship_cameras(dev) -> dict:
+def flagship_cameras(dev) -> tuple:
     """Every data/flagship800 view in the Blender form, by the name that
-    its COLMAP copy gives it (`<split>_<stem>`)."""
-    out = {}
+    its COLMAP copy gives it (`<split>_<stem>`), and its decoded image
+    composited on black (what the COLMAP copy holds), by the same names:
+    the PNGs are decoded once for phase 11."""
+    out, images = {}, {}
     for split in ("train", "test"):
         infos = read_cameras_from_transforms(str(FLAGSHIP_SCENE), f"transforms_{split}.json",
                                              WHITE_BACKGROUND)
         for i, info in enumerate(infos):
             out[f"{split}_{info.image_name}"] = load_cam(-1, i, info, 1.0, dev)
-    return out
+            images[f"{split}_{info.image_name}"] = info.image
+    return out, images
 
 
 def view_psnr(model, view, bg) -> float:
-    return float(psnr(eval_render(model, view.camera, bg, SH_DEGREE), view.gt_image))
+    return float(psnr(eval_render(model, view.camera, bg, SH_DEGREE, "tiled"), view.gt_image))
 
 
 def render_and_score(src: Path, model_dir: Path, dev, extra=()) -> tuple:
@@ -1542,7 +1612,7 @@ def phase_readers_colmap(dev) -> dict:
     """(a) data/flagship800 as COLMAP, binary and text, against its Blender
     form, then the render and metrics CLIs on the copy's test split; (b)
     the same CLIs at -r 2. Returns the summed launch counts."""
-    blender = flagship_cameras(dev)
+    blender, composited = flagship_cameras(dev)
     model = GaussianModel.from_ply(str(FLAGSHIP_PLY), SH_DEGREE, dev)
     bg = torch.zeros(3, device=dev)
     want = {name: view_psnr(model, view, bg) for name, view in blender.items()}
@@ -1551,7 +1621,8 @@ def phase_readers_colmap(dev) -> dict:
     for form in ("bin", "txt"):
         src = READERS_DIR / f"flagship800_{form}"
         t0 = time.perf_counter()
-        written = colmap_scene.blender_to_colmap(str(FLAGSHIP_SCENE), str(src), binary=form == "bin")
+        written = colmap_scene.blender_to_colmap(str(FLAGSHIP_SCENE), str(src), binary=form == "bin",
+                                                 composited=composited)
         scene = Scene(ModelParams(sh_degree=SH_DEGREE, source_path=str(src), model_path="", eval=True),
                       shuffle=False, device=dev, ply_path=str(FLAGSHIP_PLY))
         load_s = time.perf_counter() - t0
@@ -1716,6 +1787,225 @@ def phase_readers(dev) -> dict:
     return total
 
 
+REPORT_LINE = re.compile(r"\[ITER (\d+)\] Evaluating (\w+): L1 (\S+) PSNR (\S+)")
+# operations of one pair test of the oracle (`render/reference.py`): the
+# offsets, the conic's quadratic form, exp, opacity and clamp, the cuts,
+# 1 - alpha, the cumulative product, the stop test, the weight and its
+# three colour FMAs
+ORACLE_OPS_PER_PAIR = 30
+
+
+def report_lines(printed: str) -> dict:
+    """{split: (L1, PSNR)} of the `[ITER n] Evaluating <split>` lines."""
+    return {m.group(2): (float(m.group(3)), float(m.group(4))) for m in REPORT_LINE.finditer(printed)}
+
+
+def one_call_ms(fn):
+    """(result, ms) of one call of `fn`, synchronised before and after: a
+    call of seconds, timed by the host clock."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_eval_get_psnr(dev) -> dict:
+    """(a) `python -m sgs_tpu_torch.get_psnr` on the committed LGM snapshot,
+    through the `.npy` that the port's `vectorized` writes and the npz that
+    its checkpoint writer writes, each against the JAX package's
+    get_psnr.py on the same files (JAX_GET_PSNR). Returns each route's
+    numbers."""
+    model = GaussianModel.from_ply(str(LGM_PLY), 0, dev)
+    inputs = {"vec": EVAL_DIR / "vec.npy", "npz": EVAL_DIR / "snapshot.npz"}
+    np.save(inputs["vec"], np.concatenate(vectorized(model), axis=1))
+    save_checkpoint(str(inputs["npz"]), TrainState(model=model, adam=AdamState.init(model.params()),
+                                                   stats=DensifyStats.zeros(model.capacity, dev)),
+                    3000, 0, 1.0)
+    got = {}
+    for route, path in inputs.items():
+        out_dir = EVAL_DIR / f"get_psnr_{route}"
+        reset_counts()
+        t0 = time.perf_counter()
+        printed = run_cli(get_psnr_main, ["-s", LGM_SCENE, "-m", out_dir, "--eval", "--sh_degree", 0,
+                                          "--start_checkpoint", path, "--device", dev.type])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        row = (out_dir / "losses.tsv").read_text().splitlines()[1].split("\t")
+        lines = report_lines(printed)
+        mine = {"iteration": int(row[0]), "test": (float(row[1]), float(row[2])),
+                "train": lines["train"], "count": int(row[3])}
+        want = JAX_GET_PSNR[route]
+        diffs = {s: (mine[s][0] - want[s][0], mine[s][1] - want[s][1]) for s in ("test", "train")}
+        say(f"[12 eval] (a) get_psnr, {route} route: iteration {mine['iteration']}, {mine['count']} "
+            f"Gaussians; " + "; ".join(f"{s} L1 {mine[s][0]:.9f} (JAX {want[s][0]:.9f}, d {d[0]:+.2e}) "
+                                       f"PSNR {mine[s][1]:.6f} (JAX {want[s][1]:.6f}, d {d[1]:+.2e})"
+                                       for s, d in diffs.items())
+            + f"; launches {launches}; {wall:.2f} s")
+        if (mine["iteration"], mine["count"]) != (want["iteration"], want["count"]) \
+                or lines["test"] != mine["test"] or launches != only() \
+                or any(abs(d[0]) > GET_PSNR_L1_BAR or abs(d[1]) > GET_PSNR_DB_BAR for d in diffs.values()):
+            raise AssertionError(f"get_psnr {route}: {mine} against JAX's {want}, launches {launches}")
+        got[route] = mine
+    return got
+
+
+def phase_eval_oracle(dev, flagship_views) -> dict:
+    """(b) The oracle against Kernel A at full width: the flagship on test
+    views ORACLE_FLAGSHIP_VIEWS and the LGM snapshot on its 8 test views.
+    Returns each model's mean oracle ms per view and pair tests per view."""
+    lgm_views = read_nerf_synthetic_split(str(LGM_SCENE), "test", False, -1, dev)
+    bg = torch.zeros(3, device=dev)
+    out = {}
+    for label, ply, sh, views in (
+            ("flagship", FLAGSHIP_PLY, SH_DEGREE, [(i, flagship_views[i]) for i in ORACLE_FLAGSHIP_VIEWS]),
+            ("lgm", LGM_PLY, 0, list(enumerate(lgm_views)))):
+        model = GaussianModel.from_ply(str(ply), sh, dev)
+        inputs = model.render_inputs(sh)
+        stats = {"ms": [], "pairs": [], "err": 0.0}
+        for i, v in views:
+            cam = v.camera
+            w, h = cam.image_width, cam.image_height
+            with torch.no_grad():
+                tiled = render(cam, inputs, bg, mode="tiled")["render"]
+                ref, ms = one_call_ms(lambda: render(cam, inputs, bg, mode="reference")["render"])
+                p = project_and_shade(cam, inputs)
+                bins, args = raster_inputs(p, w, h)
+                over = oracle_times.explain_pixels(p, bins, ref, tiled, ORACLE_ATOL)
+            err = float((ref - tiled).abs().max())
+            unexplained = [m for m in over if not m["explained"]]
+            pairs = int(p["valid"].sum()) * w * h
+            tiled_ms = time_cuda(lambda: render(cam, inputs, bg, mode="tiled"), 3)
+            a_ms = time_ms(lambda: flat_raster.rasterize_tiles(*args), 10)
+            say(f"[12 eval] (b) {label} test view {i} ({w}x{h}): |oracle - Kernel A| {err:.2e}; "
+                f"{len(over)} pixels over {ORACLE_ATOL}, {len(over) - len(unexplained)} of them each within "
+                f"the bar of its arrangement replayed, nothing dropped by binning"
+                + "".join(f"; {m['pixel']} d {max(abs(u - v) for u, v in zip(m['oracle_px'], m['tiled_px'])):.2e}"
+                          f" flips {len(m['flips'])} |T - 1e-4| {m['t']:.1e}" for m in over[:6])
+                + f"; oracle {ms:.1f} ms for {pairs:.4g} pair tests ({pairs / ms * 1e3:.4g} a second); "
+                f"tiled render {tiled_ms:.3f} ms, Kernel A {a_ms:.4f} ms")
+            if unexplained or len(over) > NEAR_CUT_SHARE * w * h:
+                raise AssertionError(f"oracle {label} view {i}: {len(over)} pixels over {ORACLE_ATOL}, "
+                                     f"not accounted for: {unexplained[:10]}")
+            stats["ms"].append(ms)
+            stats["pairs"].append(pairs)
+            stats["err"] = max(stats["err"], err)
+        bound, by = bound_ms(0.0, ORACLE_OPS_PER_PAIR * float(np.mean(stats["pairs"])))
+        out[label] = {"ms": float(np.mean(stats["ms"])), "pairs": float(np.mean(stats["pairs"])),
+                      "err": stats["err"], "bound_ms": bound}
+        say(f"[12 eval] (b) {label}: oracle mean {out[label]['ms']:.1f} ms a view over {len(views)} views, "
+            f"{out[label]['pairs']:.4g} pair tests a view, bound {bound:.3f} ms ({by}, "
+            f"{ORACLE_OPS_PER_PAIR} operations a pair); worst |oracle - Kernel A| {stats['err']:.2e}")
+    return out
+
+
+def phase_eval_lpips(dev) -> dict:
+    """(d) LPIPS through the metrics CLI with seeded synthetic weights on the
+    flagship renders of phase 4; one view's value against the port's on
+    the CPU; ms per 800x800 pair. Returns the launch counts."""
+    weights = EVAL_DIR / "lpips" / "lpips_vgg16.npz"
+    weights.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(weights, **lpips_mod.synthetic_weights(LPIPS_SEED))
+    os.environ["SGS_LPIPS_WEIGHTS"] = str(weights)
+    try:
+        reset_counts()
+        run_cli(metrics_main, ["-m", SMOKE_DIR, "--device", dev.type])
+        torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        del os.environ["SGS_LPIPS_WEIGHTS"]
+    per_view = json.loads((SMOKE_DIR / "per_view.json").read_text())[METHOD]["LPIPS"]
+    mean = json.loads((SMOKE_DIR / "results.json").read_text())[METHOD]["LPIPS"]
+    names = sorted(per_view)
+    method_dir = SMOKE_DIR / "test" / METHOD
+    cpu = torch.device("cpu")
+    r, g = (read_image(method_dir / d / names[0], cpu) for d in ("renders", "gt"))
+    cpu_value, cpu_ms = one_call_ms(lambda: float(lpips_mod.lpips(r, g, weights_path=str(weights))[0]))
+    rd, gd = r.to(dev), g.to(dev)
+    pair_ms = time_cuda(lambda: lpips_mod.lpips(rd, gd, weights_path=str(weights)), 5)
+    rel = abs(per_view[names[0]] - cpu_value) / abs(cpu_value)
+    say(f"[12 eval] (d) LPIPS (synthetic VGG16 weights, seed {LPIPS_SEED}) through the metrics CLI on "
+        f"phase 4's {len(names)} flagship renders: mean {mean}, per view "
+        + ", ".join(f"{per_view[n]:.6f}" for n in names)
+        + f"; {names[0]} on the card {per_view[names[0]]:.8f}, on the CPU {cpu_value:.8f} (rel {rel:.2e}, "
+        f"bar {LPIPS_RTOL}; CPU {cpu_ms:.0f} ms); {pair_ms:.3f} ms a {r.shape[2]}x{r.shape[1]} pair on "
+        f"the card; launches {launches}")
+    if mean is None or not all(np.isfinite(per_view[n]) and per_view[n] > 0 for n in names) \
+            or rel > LPIPS_RTOL or launches != only(B=len(names)):
+        raise AssertionError(f"LPIPS: mean {mean}, per view {per_view}, CPU {cpu_value}, launches {launches}")
+    return launches
+
+
+def phase_eval_full_eval(dev) -> None:
+    """(e) `python -m sgs_tpu_torch.full_eval --skip_training
+    --skip_rendering` as a subprocess over the model directories of phases
+    4 and 10 (linked in as two of its scenes): the results.json it writes
+    must equal theirs."""
+    out = EVAL_DIR / "full_eval"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    want = {}
+    for scene, model_dir in (("bicycle", SMOKE_DIR), ("flowers", LGM_RENDER_DIR)):
+        (out / scene).symlink_to(model_dir, target_is_directory=True)
+        want[scene] = json.loads((model_dir / "results.json").read_text())
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "sgs_tpu_torch.full_eval", "--skip_training",
+                          "--skip_rendering", "--output_path", str(out)],
+                         cwd=ROOT, capture_output=True, text=True)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"full_eval exited {res.returncode}: {res.stderr[-2000:]}")
+    got = {scene: json.loads((out / scene / "results.json").read_text()) for scene in want}
+    say(f"[12 eval] (e) full_eval metrics-only subprocess over 13 scene paths ({len(want)} present): "
+        f"results.json equal to phases 4 and 10: {got == want}; {wall:.2f} s; its first command: "
+        f"{res.stdout.splitlines()[0][:120] if res.stdout else ''}")
+    if got != want:
+        raise AssertionError(f"full_eval results {got} != {want}")
+
+
+def phase_eval_report(dev, oracle: dict) -> dict:
+    """(f) `training_report(full_train_set=True, mode="tiled")` on the LGM
+    snapshot: A once a view, B never; its numbers against the oracle's of
+    (a) (the npz route: the same parameters). Returns the launch counts."""
+    scene = Scene(ModelParams(sh_degree=0, source_path=str(LGM_SCENE), model_path="", eval=True), device=dev)
+    model = GaussianModel.from_ply(str(LGM_PLY), 0, dev)
+    bg = torch.zeros(3, device=dev)
+    n_views = len(scene.getTestCameras()) + len(scene.getTrainCameras())
+    reset_counts()
+    t0 = time.perf_counter()
+    printed = run_cli(lambda _: training_report(None, 3000, scene, model, 0, bg, mode="tiled",
+                                                full_train_set=True), [])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    got = report_lines(printed)
+    want = {s: oracle["npz"][s] for s in ("test", "train")}
+    diffs = {s: got[s][1] - want[s][1] for s in want}
+    say(f"[12 eval] (f) training_report(full_train_set=True, mode=\"tiled\") on the LGM snapshot: "
+        + "; ".join(f"{s} PSNR {got[s][1]:.6f} (oracle {want[s][1]:.6f}, d {d:+.2e})" for s, d in diffs.items())
+        + f"; launches {launches}; {wall:.2f} s for {n_views} views")
+    if any(abs(d) > REPORT_DB_BAR for d in diffs.values()) or launches != only(A=n_views):
+        raise AssertionError(f"tiled report {got} against the oracle's {want}, launches {launches}")
+    return launches
+
+
+def phase_eval(dev, flagship_views) -> dict:
+    """Phase 12: the evaluation chain; returns A's and B's launches summed
+    over its runs in this process."""
+    t0 = time.perf_counter()
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    EVAL_DIR.mkdir(parents=True)
+    oracle = phase_eval_get_psnr(dev)
+    timing = phase_eval_oracle(dev, flagship_views)
+    total = phase_lgm_render(dev, EVAL_DIR / "lgm_reference", "reference", "[12 eval] (c) oracle")
+    phase_eval_full_eval(dev)
+    for launches in (phase_eval_lpips(dev), phase_eval_report(dev, oracle)):
+        total = {k: total[k] + launches[k] for k in total}
+    say(f"[12 eval] phase wall {time.perf_counter() - t0:.2f} s; launches over (a)-(f) {total}")
+    return {"launches": total, "oracle": timing}
+
+
 def main(device: str = "cuda") -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1738,9 +2028,12 @@ def main(device: str = "cuda") -> int:
     phase_lgm_step(dev)
     phase_lgm_train(dev)
     readers = phase_readers(dev)
+    evals = phase_eval(dev, views)
     for entry, k in zip(kernels, "ABCD"):
         entry["readers_launches"] = readers[k]
-    say(f"[12 done] chip_smoke wall {time.perf_counter() - t_start:.2f} s")
+        if k in "AB":
+            entry["eval_launches"] = evals["launches"][k]
+    say(f"[13 done] chip_smoke wall {time.perf_counter() - t_start:.2f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

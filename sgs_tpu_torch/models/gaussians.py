@@ -32,15 +32,19 @@ DEAD_LOG_SCALE = -10.0
 
 @dataclass
 class GaussianInputs:
-    """Activated per-Gaussian attributes handed to the rasterizer."""
+    """Activated per-Gaussian attributes handed to the rasterizer, with the
+    alternatives the CUDA rasterizer accepts: one of {scales + rotations,
+    cov3d_precomp} and one of {shs, colors_precomp}."""
 
     means3d: torch.Tensor  # (N, 3)
     opacities: torch.Tensor  # (N, 1) sigmoid applied
-    scales: torch.Tensor  # (N, 3) exp applied
-    rotations: torch.Tensor  # (N, 4) unit-normalised wxyz
-    shs: torch.Tensor  # (N, K, 3)
-    sh_degree: int
-    alive: torch.Tensor  # (N,) bool
+    scales: Optional[torch.Tensor] = None  # (N, 3) exp applied
+    rotations: Optional[torch.Tensor] = None  # (N, 4) unit-normalised wxyz
+    cov3d_precomp: Optional[torch.Tensor] = None  # (N, 6)
+    shs: Optional[torch.Tensor] = None  # (N, K, 3)
+    colors_precomp: Optional[torch.Tensor] = None  # (N, 3)
+    sh_degree: int = 0
+    alive: Optional[torch.Tensor] = None  # (N,) bool; None: every row
 
 
 @dataclass

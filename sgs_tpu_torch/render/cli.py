@@ -15,6 +15,8 @@ rendered as part of train and no test set is written. Writes
 the port's own: --ply renders that file in place of the model
 directory's snapshot (--iteration then only names the output), and
 --device cpu runs the plain PyTorch versions of the kernels.
+`--rasterizer reference` renders with the O(N*P) oracle in place of
+binning and Kernel A.
 """
 
 from __future__ import annotations
@@ -56,12 +58,12 @@ def save_png(path: str, image_chw: torch.Tensor) -> None:
 
 
 def render_set(out_dir: Path, views: List[LoadedCamera], model: GaussianModel,
-               sh_degree: int, background: torch.Tensor) -> None:
+               sh_degree: int, background: torch.Tensor, mode: str = "tiled") -> None:
     renders, gts = out_dir / "renders", out_dir / "gt"
     renders.mkdir(parents=True, exist_ok=True)
     gts.mkdir(parents=True, exist_ok=True)
     for idx, view in enumerate(views):
-        image = eval_render(model, view.camera, background, sh_degree)
+        image = eval_render(model, view.camera, background, sh_degree, mode)
         save_png(str(renders / f"{idx:05d}.png"), image)
         save_png(str(gts / f"{idx:05d}.png"), view.gt_image)
 
@@ -82,7 +84,7 @@ def render_sets(dataset: ModelParams, iteration: int, pipe: PipelineParams, skip
                                ("test", scene.test_cameras, skip_test)):
         if not skip:
             render_set(Path(dataset.model_path) / split / f"ours_{scene.loaded_iter}", views,
-                       scene.pool, dataset.sh_degree, background)
+                       scene.pool, dataset.sh_degree, background, pipe.rasterizer)
     return scene.loaded_iter
 
 

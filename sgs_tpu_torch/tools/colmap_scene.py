@@ -27,7 +27,7 @@ import json
 import os
 import struct
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -101,9 +101,12 @@ def pinhole(width: int, height: int, fovx: float) -> colmap.ColmapCamera:
                                np.array([focal, focal, width / 2, height / 2]))
 
 
-def blender_to_colmap(src: str, dst: str, binary: bool = True) -> int:
+def blender_to_colmap(src: str, dst: str, binary: bool = True,
+                      composited: Optional[Dict[str, np.ndarray]] = None) -> int:
     """Write a COLMAP copy of the Blender scene `src` into `dst`, its
-    images composited on black; returns the number of images."""
+    images composited on black; returns the number of images.
+    `composited` may hold those images already, by COLMAP name
+    (`<split>_<stem>`), to spare decoding them again."""
     os.makedirs(os.path.join(dst, "images"), exist_ok=True)
     images, size, fovx = [], None, None
     for split in ("train", "test"):
@@ -111,8 +114,9 @@ def blender_to_colmap(src: str, dst: str, binary: bool = True) -> int:
             continue
         fovx, poses = blender_poses(src, split)
         for stem, w2c in poses:
-            image = composite_background(decode_image(os.path.join(src, split, stem + ".png")), False)
             name = f"{split}_{stem}.png"
+            image = (composited[name[:-4]] if composited is not None else
+                     composite_background(decode_image(os.path.join(src, split, stem + ".png")), False))
             write_png(os.path.join(dst, "images", name), image)
             images.append((name, w2c))
             size = (image.shape[1], image.shape[0])
@@ -135,7 +139,7 @@ def capture_scene(model: GaussianModel, poses: Sequence[Pose], dst: str, width: 
     images = []
     for stem, w2c in poses:
         cam = view_camera(w2c, fovx, width, height, model.device)
-        save_png(os.path.join(dst, "images", stem + ".png"), eval_render(model, cam, bg, sh_degree))
+        save_png(os.path.join(dst, "images", stem + ".png"), eval_render(model, cam, bg, sh_degree, "tiled"))
         images.append((stem + ".png", w2c))
     write_sparse(dst, pinhole(width, height, fovx), images, xyz, rgb)
 
@@ -179,8 +183,8 @@ def zero123_scene(model: GaussianModel, poses: Sequence[Pose], dst: str, size: i
     white = torch.ones(3, device=model.device)
     for i, (_, w2c) in enumerate(poses):
         cam = view_camera(w2c, fov, size, size, model.device)
-        on_black = eval_render(model, cam, black, sh_degree)
-        alpha = (1.0 - (eval_render(model, cam, white, sh_degree) - on_black)[0]).clamp(0.0, 1.0)
+        on_black = eval_render(model, cam, black, sh_degree, "tiled")
+        alpha = (1.0 - (eval_render(model, cam, white, sh_degree, "tiled") - on_black)[0]).clamp(0.0, 1.0)
         rgb = on_black / alpha.clamp_min(1e-6)[None]
         rgba = np.concatenate([quantize(rgb), quantize(alpha[None])], axis=2)
         write_png(os.path.join(dst, f"{i:03d}.png"), rgba)

@@ -80,6 +80,15 @@ def scene_counts(sc: dict, walked=None) -> dict:
             "rows": sc["max_rows"], "tiles": sc["num_tiles"]}
 
 
+def scan_counts(sc: dict, mode: str) -> dict:
+    """`scene_counts` over the rows that the scan of `mode` walks, from its
+    plain version's `walked`: hs and mxu skip the same rows, nocp its own
+    (its t_run falls only by each row's last factor)."""
+    _, info = exp_forward.scan_plain(sc["packed_fm"], sc["chunk_row_start"], sc["n_chunks"],
+                                     sc["tiles_x"], mode)
+    return scene_counts(sc, info["walked"])
+
+
 def forward(where: str, what: str, c: dict, mode: str, out_cols: int = 8) -> dict:
     """One forward-raster variant on the counts `c` (`scene_counts`): the
     fields it reads of the rows it walks and the tile tables in, the

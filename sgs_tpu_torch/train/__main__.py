@@ -9,8 +9,9 @@ unused, as in JAX; --detect_anomaly turns on
 `torch.autograd.set_detect_anomaly` (JAX: `jax_debug_nans`);
 --profile_dir writes a `torch.profiler` Chrome trace of the whole
 `training(...)` call to <profile_dir>/trace.json (JAX: a `jax.profiler`
-trace over the same window). Runs on the card; --device cpu runs the
-plain PyTorch versions of the kernels instead. Not ported:
+trace over the same window). `--rasterizer reference` trains through
+the O(N*P) oracle, its backward by autograd. Runs on the card; --device
+cpu runs the plain PyTorch versions of the kernels instead. Not ported:
 --parallel dp|hybrid, the network viewer (--ip/--port are accepted and
 unused) and tensorboard.
 """

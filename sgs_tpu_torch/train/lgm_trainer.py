@@ -58,13 +58,13 @@ LGM_EPS = 1e-15
 
 
 def lgm_grads(model: LatentGaussianModel, camera: Camera, gt_image: torch.Tensor,
-              bg: torch.Tensor, lambda_dssim: float, active_sh_degree: int
+              bg: torch.Tensor, lambda_dssim: float, active_sh_degree: int, mode: str = "tiled"
               ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor], dict]:
     """The step's loss, L1, the gradient of every leaf of
     `model.trainable_params()` (before the non-finite guard) and the
-    render's output."""
+    render's output, rendered by the rasterizer of `mode`."""
     params = model.trainable_params()
-    out = render(camera, model.render_inputs(active_sh_degree), bg)
+    out = render(camera, model.render_inputs(active_sh_degree), bg, mode=mode)
     image = out["render"]
     ll1 = l1_loss(image, gt_image)
     loss = (1.0 - lambda_dssim) * ll1 + lambda_dssim * (1.0 - ssim(image, gt_image))
@@ -76,10 +76,11 @@ def lgm_grads(model: LatentGaussianModel, camera: Camera, gt_image: torch.Tensor
 
 def lgm_train_step(model: LatentGaussianModel, adam: TreeAdamState, camera: Camera,
                    gt_image: torch.Tensor, bg: torch.Tensor, lambda_dssim: float,
-                   active_sh_degree: int) -> Tuple[TreeAdamState, dict]:
+                   active_sh_degree: int, mode: str = "tiled") -> Tuple[TreeAdamState, dict]:
     """One optimisation step; updates the model's parameters in place and
     returns (new Adam state, metrics: loss, l1, nonfinite_grads)."""
-    loss, ll1, grads, _ = lgm_grads(model, camera, gt_image, bg, lambda_dssim, active_sh_degree)
+    loss, ll1, grads, _ = lgm_grads(model, camera, gt_image, bg, lambda_dssim, active_sh_degree,
+                                    mode)
     with torch.no_grad():
         finite = {k: torch.isfinite(g) for k, g in grads.items()}
         nonfinite = sum((~f).sum() for f in finite.values())
@@ -161,13 +162,13 @@ def training_lgm(dataset: ModelParams, opt: OptimizationParams, pipe: PipelinePa
             bg = bg_color
 
         adam, metrics = lgm_train_step(model, adam, cam.camera, cam.gt_image, bg,
-                                       opt.lambda_dssim, active_sh_degree)
+                                       opt.lambda_dssim, active_sh_degree, pipe.rasterizer)
         ema_loss = 0.4 * float(metrics["loss"]) + 0.6 * ema_loss
         if not pipe.no_tqdm and iteration % 100 == 0:
             print(f"[{iteration}] ema loss {ema_loss:.6f}")
 
         if iteration in testing_iterations:
-            report_lgm(iteration, scene, model, active_sh_degree, bg_color)
+            report_lgm(iteration, scene, model, active_sh_degree, bg_color, pipe.rasterizer)
         if iteration in saving_iterations:
             path = os.path.join(model_path, f"point_cloud/iteration_{iteration}", "point_cloud.ply")
             with torch.no_grad():
@@ -188,16 +189,17 @@ def training_lgm(dataset: ModelParams, opt: OptimizationParams, pipe: PipelinePa
 
 @torch.no_grad()
 def report_lgm(iteration: int, scene, model: LatentGaussianModel, active_sh_degree: int,
-               bg_color: torch.Tensor) -> None:
+               bg_color: torch.Tensor, mode: str = "tiled") -> None:
     """Prints the mean L1 and PSNR over the test views and the first 8
-    train views, as the JAX trainer does."""
+    train views, rendered by the rasterizer of `mode`, as the JAX trainer
+    does."""
     for name, cams in (("test", scene.getTestCameras()), ("train", scene.getTrainCameras()[:8])):
         if not cams:
             continue
         inputs = model.render_inputs(active_sh_degree)
         l1s, psnrs = [], []
         for cam in cams:
-            img = torch.clamp(render(cam.camera, inputs, bg_color)["render"], 0.0, 1.0)
+            img = torch.clamp(render(cam.camera, inputs, bg_color, mode=mode)["render"], 0.0, 1.0)
             gt = torch.clamp(cam.gt_image, 0.0, 1.0)
             l1s.append(float(l1_loss(img, gt)))
             psnrs.append(float(psnr(img, gt)))

@@ -30,17 +30,19 @@ class TrainState:
 
 def train_step(state: TrainState, camera: Camera, gt_image: torch.Tensor, bg_color: torch.Tensor,
                lrs: Dict[str, float], active_sh_degree: int, lambda_dssim: float = 0.2,
-               freeze_xyz: bool = False, apply_update: bool = True) -> Tuple[TrainState, dict]:
-    """One optimisation step on one view. Returns (new state, metrics):
-    loss, l1, n_visible, overflow (always 0: the port sizes its arrays
-    from real counts) and nonfinite_grads, all as tensors."""
+               freeze_xyz: bool = False, apply_update: bool = True,
+               mode: str = "tiled") -> Tuple[TrainState, dict]:
+    """One optimisation step on one view, rendered by the rasterizer of
+    `mode` ("tiled" or "reference"). Returns (new state, metrics): loss,
+    l1, n_visible, overflow (always 0: the port sizes its arrays from real
+    counts) and nonfinite_grads, all as tensors."""
     model = state.model
     n = model.capacity
     leaves = {f: getattr(model, f).detach().requires_grad_(True) for f in PARAM_FIELDS}
     tap = torch.zeros((n, 3), dtype=torch.float32, device=model.device, requires_grad=True)
 
     out = render(camera, model.with_params(leaves).render_inputs(active_sh_degree), bg_color,
-                 vspace_tap=tap)
+                 vspace_tap=tap, mode=mode)
     image = out["render"]
     ll1 = l1_loss(image, gt_image)
     loss = (1.0 - lambda_dssim) * ll1 + lambda_dssim * (1.0 - ssim(image, gt_image))
@@ -81,7 +83,8 @@ def train_step(state: TrainState, camera: Camera, gt_image: torch.Tensor, bg_col
 
 @torch.no_grad()
 def eval_render(model: GaussianModel, camera: Camera, bg_color: torch.Tensor,
-                active_sh_degree: int) -> torch.Tensor:
-    """Render one view through the tiled path and clamp to [0, 1]."""
-    out = render(camera, model.render_inputs(active_sh_degree), bg_color)
+                active_sh_degree: int, mode: str = "reference") -> torch.Tensor:
+    """Render one view and clamp to [0, 1]. The default mode is the JAX
+    function's, the oracle; "tiled" renders through binning and Kernel A."""
+    out = render(camera, model.render_inputs(active_sh_degree), bg_color, mode=mode)
     return torch.clamp(out["render"], 0.0, 1.0)

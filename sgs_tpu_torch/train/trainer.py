@@ -16,9 +16,11 @@ every densify step, so the port makes the same `sample` calls (it needs no
 bucket) and pops the same views. Random backgrounds and split noise come
 from a `torch.Generator` seeded with `seed`.
 
-Not ported, each raising where the JAX trainer would use it: multi-device
-training (--parallel dp|hybrid), the rasterizer choices other than the
-tiled one and the network viewer. The port does not import tensorboard:
+`--rasterizer reference` trains and reports through the O(N*P) oracle,
+its backward by autograd, as the JAX trainer does. Not ported, each
+raising where the JAX trainer would use it: multi-device training
+(--parallel dp|hybrid), the tiled rasterizer without tight culling and
+the network viewer. The port does not import tensorboard:
 it prints the line the JAX trainer prints when tensorboard is missing
 ("Tensorboard not available: not logging progress") and trains on.
 """
@@ -142,7 +144,7 @@ def training(dataset: ModelParams, opt: OptimizationParams, pipe: PipelineParams
         state, metrics = train_step(
             state, cam.camera, cam.gt_image, bg, lrs, active_sh_degree=active_sh_degree,
             lambda_dssim=opt.lambda_dssim, freeze_xyz=dataset.freeze_xyz,
-            apply_update=iteration < opt.iterations,
+            apply_update=iteration < opt.iterations, mode=pipe.rasterizer,
         )
         nfg = int(metrics["nonfinite_grads"])
         nonfinite_total += nfg
@@ -151,7 +153,8 @@ def training(dataset: ModelParams, opt: OptimizationParams, pipe: PipelineParams
                   "this step (degenerate splat geometry)")
 
         if iteration in testing_iterations:
-            training_report(tsv, iteration, scene, state.model, active_sh_degree, bg_color)
+            training_report(tsv, iteration, scene, state.model, active_sh_degree, bg_color,
+                            mode=pipe.rasterizer)
         if iteration in saving_iterations:
             print(f"\n[ITER {iteration}] Saving Gaussians")
             scene.save(state.model, iteration)
@@ -199,18 +202,24 @@ def training(dataset: ModelParams, opt: OptimizationParams, pipe: PipelineParams
 
 
 def training_report(tsv, iteration: int, scene, model, active_sh_degree: int,
-                    bg_color: torch.Tensor) -> None:
-    """Mean L1 and PSNR over the test views and over train views 5..29;
-    the test numbers become a losses.tsv row."""
+                    bg_color: torch.Tensor, mode: str = "reference",
+                    full_train_set: bool = False) -> None:
+    """Mean L1 and PSNR over the test views and over train views 5..29
+    (every train view with `full_train_set`, as get_psnr asks), rendered
+    by the rasterizer of `mode` (JAX's default: the oracle); the test
+    numbers become a losses.tsv row."""
     train_cams = scene.getTrainCameras()
-    train_eval = [train_cams[i % len(train_cams)] for i in range(5, 30)] if train_cams else []
+    if full_train_set:
+        train_eval = list(train_cams)
+    else:
+        train_eval = [train_cams[i % len(train_cams)] for i in range(5, 30)] if train_cams else []
     n_gaussians = model.num_alive
     for name, cams in (("test", scene.getTestCameras()), ("train", train_eval)):
         if not cams:
             continue
         l1_sum, psnr_sum = 0.0, 0.0
         for cam in cams:
-            image = eval_render(model, cam.camera, bg_color, active_sh_degree)
+            image = eval_render(model, cam.camera, bg_color, active_sh_degree, mode)
             gt = torch.clamp(cam.gt_image, 0.0, 1.0)
             l1_sum += float(l1_loss(image, gt))
             psnr_sum += float(psnr(image, gt))

@@ -10,8 +10,9 @@ chkpnt<iter>.npz (the LGM checkpoint, which the JAX trainer also loads)
 in the model directory; --start_checkpoint resumes from one (a JAX
 checkpoint loads as it is). `random`, `numpy` and `torch` are seeded with
 0, as the JAX CLI seeds `random` and `numpy`, so `--downsample_init`
-keeps the same points. Runs on the card; --device cpu runs the plain
-PyTorch versions of the kernels instead. --ip, --port, --debug_from,
+keeps the same points. `--rasterizer reference` trains and reports
+through the O(N*P) oracle, its backward by autograd. Runs on the card;
+--device cpu runs the plain PyTorch versions of the kernels instead. --ip, --port, --debug_from,
 --detect_anomaly and --debug_latent are accepted and unused, as in JAX
 (the network viewer is not ported).
 """

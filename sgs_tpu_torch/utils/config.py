@@ -47,8 +47,9 @@ class PipelineParams:
     compute_cov3D_python: bool = False
     no_tqdm: bool = False
     debug: bool = False
-    # kept by name for command-line compatibility: the port runs the tiled
-    # rasterizer with tight culling on a single device only
+    # "tiled" (binning and Kernel A; tight culling only) or "reference"
+    # (the O(N*P) oracle); the rest is kept by name for command-line
+    # compatibility: the port runs on a single device only
     rasterizer: str = "tiled"
     raster_backend: str = "auto"
     parallel: str = "none"
@@ -153,6 +154,10 @@ def get_combined_args(parser: ArgumentParser, argv=None) -> Namespace:
 
 
 def check_rasterizer(pipe: PipelineParams) -> None:
-    """The port renders with the tiled rasterizer and tight culling only."""
+    """The port renders with the tiled rasterizer and tight culling, or with
+    the reference rasterizer (the O(N*P) oracle)."""
+    if pipe.rasterizer == "reference":
+        return
     if pipe.rasterizer != "tiled" or not pipe.tight_culling:
-        raise NotImplementedError("the port renders with the tiled rasterizer and tight culling only")
+        raise NotImplementedError("the port renders with the tiled rasterizer and tight culling "
+                                  "or with the reference rasterizer only")

@@ -30,6 +30,7 @@ import train_lgm as jax_train_lgm
 from sgs_tpu.data.ply import load_gaussian_ply, save_gaussian_ply
 from sgs_tpu.utils import config as jax_config
 from sgs_tpu_torch.data.ply import save_point_cloud_ply
+from sgs_tpu_torch.data.png import read_png
 from sgs_tpu_torch.render import cli as render_cli
 from sgs_tpu_torch import train_lgm as train_lgm_cli
 from sgs_tpu_torch.train import __main__ as train_cli
@@ -191,9 +192,20 @@ def test_render_without_eval_renders_no_test_set(trained, how):
 
 
 def test_render_refuses_the_reference_rasterizer(trained):
+    """The render CLI refuses the rasterizers it does not run, the tiled one
+    without tight culling; `--rasterizer reference` (the oracle, which the
+    port now runs) renders the test set to the tiled path's PNGs within one
+    8-bit level."""
     _, model = trained
     with pytest.raises(NotImplementedError, match="tiled rasterizer"):
-        render_cli.main(["-m", str(model), "--rasterizer", "reference", "--device", "cpu"])
+        render_cli.main(["-m", str(model), "--no-tight_culling", "--device", "cpu"])
+    render_cli.main(["-m", str(model), "--skip_train", "--device", "cpu"])
+    tiled = [read_png(str(p)) for p in sorted((model / "test").glob("ours_*/renders/*.png"))]
+    render_cli.main(["-m", str(model), "--rasterizer", "reference", "--skip_train", "--device", "cpu"])
+    oracle = [read_png(str(p)) for p in sorted((model / "test").glob("ours_*/renders/*.png"))]
+    assert len(oracle) == len(tiled) == 2
+    for a, b in zip(oracle, tiled):
+        assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 1
 
 
 def test_train_detect_anomaly_and_profile_dir(tmp_path):

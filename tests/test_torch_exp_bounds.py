@@ -107,3 +107,21 @@ def test_vmem_gather_bound_has_l2_term(rate):
     assert h["bound_term"] == ("l2" if h["l2_ms"] > h["hbm_bound_ms"] else "hbm")
     small_dma = (torch.zeros((1000, 16)), torch.zeros(16, dtype=torch.int32))
     assert exp_bounds.gather_rows((table, ids), small_dma, 100, rate)[0]["bound_ms"] == h["bound_ms"]
+
+
+@pytest.mark.parametrize("mode", exp_forward.SCANS)
+def test_scan_counts_read_the_rows_each_scan_walks(mode):
+    """A scan's bound counts the rows its plain version walks: hs and mxu
+    the same rows, nocp its own; its bytes are 9 fields of each slot of
+    those rows, the tile tables and the per-row state."""
+    sc = exp_scene.build_scene(*SMALL, seed=0, device="cpu")
+    _, info = exp_forward.scan_plain(sc["packed_fm"], sc["chunk_row_start"], sc["n_chunks"],
+                                     sc["tiles_x"], mode)
+    c = exp_bounds.scan_counts(sc, mode)
+    assert c == exp_bounds.scene_counts(sc, info["walked"])
+    assert 0 < c["read"] <= sc["rows_used"]
+    if mode == "mxu":
+        assert c == exp_bounds.scan_counts(sc, "hs")
+    row = exp_bounds.forward("scripts/exp_fwd.py:210", "forward variant (Kernel E)", c, mode)
+    assert row["bytes"] == c["read"] * 64 * 9 * 4 + 12 * sc["num_tiles"] + sc["max_rows"] * 256 * 8 * 4
+    assert row["ops"] == exp_forward.OPS_PER_PAIR[mode] * c["P"] and row["bound_ms"] > 0

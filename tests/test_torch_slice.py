@@ -68,7 +68,7 @@ def test_slice_matches_jax(pair, view):
             pool, jcam, jnp.zeros(3), 3, mode="tiled", max_instances=mi, backend="pallas",
             max_row_instances=mr, max_kernel_rows=mk,
         ))
-    got = eval_render(model, cam, torch.zeros(3), 3)
+    got = eval_render(model, cam, torch.zeros(3), 3, "tiled")
     assert got.shape == (3, SIZE, SIZE)
     assert float(got.max()) > 0.1, "the subset should cover part of the view"
     np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=0)
