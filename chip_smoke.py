@@ -6,8 +6,9 @@
 Phases:
   1. device: the card's name and power limit (nvidia-smi) and torch's name;
   2. build: the six CUDA sources built cold from `sgs_tpu_torch/csrc/`,
-     with the L2 read probe (`csrc/l2_read.cu`) and Kernel F's PR 10 alpha
-     path (`tools/scan_ablation.py`'s `alpha_pr10` variant of
+     with the JPEG decoder's host library (`csrc/jpeg.cu`), the L2 read
+     probe (`csrc/l2_read.cu`) and Kernel F's PR 10 alpha path
+     (`tools/scan_ablation.py`'s `alpha_pr10` variant of
      `exp_forward.cu`), one nvcc per source, started together;
   3. kernels against their plain PyTorch versions on the card: Kernels A
      (raster forward) and C (raster backward), bit for bit, on a seeded
@@ -142,10 +143,38 @@ Phases:
      `training_report(full_train_set=True, mode="tiled")` on the LGM
      snapshot: A once per view, B never, within 1e-4 dB of (a)'s oracle
      numbers. The launch counts are reset before and read after each run;
- 13. a `{"kernels": [...]}` line (A-D also with `readers_launches`, their
-     launches over phase 11, and A and B with `eval_launches`, theirs over
-     phase 12), the device line, and last the result line
-     `{"ok": true, "device": {...}}`.
+ 13. the JPEG decoder and the tools: (a) every committed case of
+     data/jpeg_cases through the native decoder (`ops/jpeg.py`, host C++
+     built with nvcc) equal to PIL's digest in digests.json, and to the
+     plain decoder under 64,000 pixels; native ms per Mpx on the 800x800
+     views and the 4946x3286 frame, with the host's CPU model; (b) the
+     JPEG COLMAP flagship (data/colmap_flagship800_jpg, 56 views, llffhold
+     8): its scene load beside phase 11's PNG copy, the render and metrics
+     CLIs held per view to the JAX package's numbers on it (`JAX_JPG_*`,
+     within PSNR_BAR and SSIM_BAR), 100 iterations from points3d through
+     A-D (launches equal to the steps and report views, the test L1
+     falling), and the 4946x3286 frame's 1.6K GT through `-r -1` equal to
+     the plain resize of the same decode; (c) `python -m
+     sgs_tpu_torch.train_lgm` with the viewer listening on a free port: a
+     client thread holds the loop (train=0), takes two frames and releases
+     it with a third; each served frame equals `image_to_bytes` of the
+     trainer's render of the same camera and scaling modifier, the run
+     ends, and its step time with the listener open and no client is
+     printed beside phase 10's; (d) `python -m sgs_tpu_torch.view` on the
+     flagship: 24 frames at 512x512, Kernel A launched 24 times, each frame
+     the quantised Kernel A render and within 3e-5 of the plain render,
+     the GIF's header, frame count, delays and loop field; (e)
+     `make_raytraced_dataset` regenerating data/lgm400 (each PNG equal to
+     the committed one but for 1-LSB flips on under 0.1% of the pixels,
+     points3d.ply within 1e-6), then `make_blender_dataset` at 128x128
+     through the oracle and 200 training iterations on it; (f) `python -m
+     sgs_tpu_torch.analyze_model` on the flagship printing the JAX CLI's
+     lines, its PCA PLYs reloading. The launch counts are reset before and
+     read after each run;
+ 14. a `{"kernels": [...]}` line (A-D also with `readers_launches`, their
+     launches over phase 11, `tools_launches`, theirs over phase 13, and A
+     and B with `eval_launches`, theirs over phase 12), the device line,
+     and last the result line `{"ok": true, "device": {...}}`.
 
 Any failed phase raises and the script exits nonzero. It needs the
 repository around it and a CUDA device; without either it fails before
@@ -155,14 +184,18 @@ printing a result.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
+import math
 import os
 import random
 import re
 import shutil
+import socket
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -172,7 +205,9 @@ import torch
 from sgs_tpu_torch.core.device import resolve_device
 from sgs_tpu_torch.core.projection import TILE, tile_rect
 from sgs_tpu_torch.data.ply import load_gaussian_ply, load_point_cloud_ply
-from sgs_tpu_torch.data.camera_utils import load_cam, read_nerf_synthetic_split
+from sgs_tpu_torch.data import jpeg as jpeg_plain
+from sgs_tpu_torch.data.camera_utils import gt_from_image, load_cam, read_nerf_synthetic_split, target_size
+from sgs_tpu_torch.data.gif import read_gif_info
 from sgs_tpu_torch.data.png import read_png
 from sgs_tpu_torch.data.readers import read_cameras_from_transforms
 from sgs_tpu_torch.data.scene import Scene
@@ -183,13 +218,15 @@ from sgs_tpu_torch.metrics import main as metrics_main
 from sgs_tpu_torch.models.gaussians import PARAM_FIELDS, DensifyStats, GaussianModel, default_capacity
 from sgs_tpu_torch.models.latent import LatentGaussianModel
 from sgs_tpu_torch.models.vectorized import vectorized
-from sgs_tpu_torch.ops import build, exp_forward, flat_raster, gather, ssim as ssim_ops
+from sgs_tpu_torch.ops import build, exp_forward, flat_raster, gather, jpeg as jpeg_ops, ssim as ssim_ops
 from sgs_tpu_torch.ops.ssim import psnr
 from sgs_tpu_torch.render.cli import main as render_main
 from sgs_tpu_torch.render.cli import render_sets
 from sgs_tpu_torch.render.pipeline import project_and_shade, render
 from sgs_tpu_torch.render.tiled import bin_gaussians, kernel_args
 from sgs_tpu_torch import train_zero123
+from sgs_tpu_torch import view as view_cli
+from sgs_tpu_torch.analyze_model import main as analyze_main
 from sgs_tpu_torch.tools import (colmap_scene, exp_bounds, exp_dma_gather, exp_fwd, exp_fwd2,
                                  exp_gather_layout, exp_scene, exp_transposed, exp_vmem_gather,
                                  gather_inputs, l2_rate, oracle_times, scan_ablation)
@@ -204,6 +241,9 @@ from sgs_tpu_torch.train.optim import AdamState, TreeAdamState, adam_tree_update
 from sgs_tpu_torch.train.trainer import training_report
 from sgs_tpu_torch.train_lgm import main as train_lgm_main
 from sgs_tpu_torch.utils.config import ModelParams, OptimizationParams, PipelineParams, save_cfg_args
+from sgs_tpu_torch.utils.raytrace_scene import make_raytraced_dataset
+from sgs_tpu_torch.utils.toy_scene import make_blender_dataset
+from sgs_tpu_torch.viewer import network_gui
 
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP_PLY = ROOT / "assets" / "flagship" / "point_cloud.ply"
@@ -325,6 +365,50 @@ EVAL_DIR = ROOT / "build" / "smoke" / "eval"
 LPIPS_SEED, LPIPS_RTOL = 0, 1e-4
 
 
+# Phase 13: the JPEG decoder and the tools.
+TOOLS_DIR = ROOT / "build" / "smoke" / "tools"
+JPEG_CASES = ROOT / "data" / "jpeg_cases"
+JPEG_SCENE = ROOT / "data" / "colmap_flagship800_jpg"
+JPEG_BIG = "flagship_4946x3286_q95_420.jpg"
+PLAIN_JPEG_MAX_PX = 64_000  # the plain Python Huffman loop is held to the native one below this
+# The JAX package's render.py and metrics.py on the JPEG copy's test split
+# (PIL decodes the JPEGs), copied from
+# runs/colmap_flagship800_jpg_jax/model_full/per_view.json (run.py there
+# makes it; run.log has the commands); tests/test_torch_jpeg_scene.py
+# holds these to that file. The port is held to them within PSNR_BAR and
+# SSIM_BAR, the reader bars.
+JAX_JPG_PSNR = [
+    13.538168907165527, 35.80485534667969, 36.862022399902344, 35.243385314941406,
+    37.15705490112305, 36.63990783691406, 35.6488151550293,
+]
+JAX_JPG_SSIM = [
+    0.8489869832992554, 0.9688382148742676, 0.9735382795333862, 0.9602890610694885,
+    0.9722972512245178, 0.9718735814094543, 0.9624995589256287,
+]
+VIEWER_ITERS, VIEWER_CONNECT_AT = 300, 150
+VIEW_FRAMES, VIEW_SIZE, VIEW_ATOL = 24, 512, 3e-5
+# the ray tracer's images against the committed data/lgm400: a byte may
+# differ by 1 (numpy's transcendental functions may differ by an ulp
+# between hosts) on under RAYTRACE_FLIP_SHARE of the pixels; the init
+# cloud within RAYTRACE_XYZ_ATOL
+RAYTRACE_FLIP_SHARE, RAYTRACE_XYZ_ATOL = 1e-3, 1e-6
+# data/lgm400's arguments (assets/flagship/README.md gives flagship800's)
+LGM_RAYTRACE = dict(n_train=48, n_test=8, width=400, height=400, n_init_points=20_000)
+BLENDER_SIZE, BLENDER_ITERS = 128, 200
+# The JAX package's analyze_model.py on assets/flagship/point_cloud.ply
+# (`python analyze_model.py --ply assets/flagship/point_cloud.ply --out
+# <dir>` on the CPU, its printed lines); tests/test_torch_analyze_cli.py
+# holds the port's lines to the JAX CLI's on a small model.
+JAX_ANALYZE_LINES = [
+    "vectorize round trip OK ((161809, 11), (161809, 48))",
+    "unnormalized: top-3 PCA explains 0.972",
+    "normalized: top-3 PCA explains 0.243",
+    "Done.",
+]
+STAMP = re.compile(r" \[\d\d/\d\d \d\d:\d\d:\d\d\]$")
+MEASURED = {}
+
+
 def say(*parts) -> None:
     print(*parts, flush=True)
 
@@ -353,13 +437,14 @@ def phase_build() -> build.CudaKernel:
     returns the last."""
     t0 = time.perf_counter()
     old_alpha = scan_ablation.variant_kernel(OLD_ALPHA)
-    build.build_all([*KERNELS, PROBE, old_alpha])
+    build.build_all([*KERNELS, PROBE, old_alpha, jpeg_ops.DECODER])
     total = time.perf_counter() - t0
-    for k in (*KERNELS, PROBE, old_alpha):
+    for k in (*KERNELS, PROBE, old_alpha, jpeg_ops.DECODER):
         regs = [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln]
         say(f"[2 build] {k.source.name}: {k.build_seconds if k.build_seconds is not None else 0.0:.2f} s "
             f"(cached: {k.build_seconds is None}) {' | '.join(regs)}")
-    say(f"[2 build] {len(KERNELS)} sources, the probe and PR 10's alpha path ready in {total:.2f} s")
+    say(f"[2 build] {len(KERNELS)} sources, the probe, PR 10's alpha path and the JPEG decoder ready in "
+        f"{total:.2f} s")
     return old_alpha
 
 
@@ -811,11 +896,16 @@ class _Tee(io.TextIOBase):
 
 
 def run_cli(fn, argv) -> str:
-    """Run a CLI entry point in this process; returns what it printed."""
+    """Run a CLI entry point in this process; returns what it printed, the
+    time stamps of `safe_state` taken off the lines. sys.stdout is the
+    same object after the call."""
+    before = sys.stdout
     tee = _Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
         fn([str(a) for a in argv])
-    return tee.buf.getvalue()
+    if sys.stdout is not before:
+        raise AssertionError(f"{fn.__module__} left sys.stdout replaced")
+    return "\n".join(STAMP.sub("", ln) for ln in tee.buf.getvalue().split("\n"))
 
 
 def scene_extent() -> float:
@@ -1529,6 +1619,8 @@ def phase_lgm_train(dev) -> None:
     n_views = len(json.loads((LGM_SCENE / "transforms_test.json").read_text())["frames"]) + 8
     steps = LGM_ITERS
     rate = [ln for ln in out.splitlines() if ln.startswith("LGM: ")]
+    if rate:
+        MEASURED["lgm_it_s"] = float(rate[0].split("(")[1].split()[0])
     for it in LGM_TESTS:
         say(f"[10 lgm] from scratch, iteration {it}: test PSNR {reports[('test', it)]:.4f} "
             f"(JAX {JAX_LGM_TEST_PSNR[it]:.4f}, d {reports[('test', it)] - JAX_LGM_TEST_PSNR[it]:+.4f}), "
@@ -1623,9 +1715,11 @@ def phase_readers_colmap(dev) -> dict:
         t0 = time.perf_counter()
         written = colmap_scene.blender_to_colmap(str(FLAGSHIP_SCENE), str(src), binary=form == "bin",
                                                  composited=composited)
+        t1 = time.perf_counter()
         scene = Scene(ModelParams(sh_degree=SH_DEGREE, source_path=str(src), model_path="", eval=True),
                       shuffle=False, device=dev, ply_path=str(FLAGSHIP_PLY))
         load_s = time.perf_counter() - t0
+        MEASURED[f"png_{form}_scene_load_s"] = time.perf_counter() - t1
         views = scene.getTrainCameras() + scene.getTestCameras()
         counts = (written, len(scene.getTrainCameras()), len(scene.getTestCameras()))
         if counts != (n_views, n_views - n_test, n_test):
@@ -2006,6 +2100,411 @@ def phase_eval(dev, flagship_views) -> dict:
     return {"launches": total, "oracle": timing}
 
 
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo gives it: model name, vendor, family
+    and model numbers (a virtualised host may name its model "unknown"), with
+    the core count."""
+    info = {}
+    for ln in Path("/proc/cpuinfo").read_text().splitlines():
+        key, _, value = ln.partition(":")
+        info.setdefault(key.strip(), value.strip())
+    fields = [info.get(k, "?") for k in ("model name", "vendor_id", "cpu family", "model")]
+    return f"{fields[0]} ({fields[1]} family {fields[2]} model {fields[3]}), {os.cpu_count()} cores"
+
+
+def phase_tools_jpeg() -> None:
+    """(a) Every committed case through the native decoder against PIL's
+    digest, and against the plain decoder under PLAIN_JPEG_MAX_PX; the
+    native ms per Mpx on the 800x800 views and the 4946x3286 frame."""
+    digests = json.loads((JPEG_CASES / "digests.json").read_text())
+    plain_checked = 0
+    for name, want in sorted(digests.items()):
+        path = str(JPEG_CASES / name)
+        got = jpeg_ops.read_jpeg_native(path)
+        if hashlib.sha256(got.tobytes()).hexdigest() != want["sha256"] or list(got.shape) != want["shape"]:
+            raise AssertionError(f"native JPEG decode of {name} differs from PIL's digest")
+        if got.shape[0] * got.shape[1] < PLAIN_JPEG_MAX_PX:
+            if not np.array_equal(got, jpeg_plain.read_jpeg(path)):
+                raise AssertionError(f"native JPEG decode of {name} differs from the plain decoder")
+            plain_checked += 1
+    views = sorted(str(p) for p in (JPEG_SCENE / "images").glob("*.jpg"))
+    t0 = time.perf_counter()
+    for p in views:
+        jpeg_ops.read_jpeg_native(p)
+    views_s = time.perf_counter() - t0
+    big = str(JPEG_CASES / JPEG_BIG)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        jpeg_ops.read_jpeg_native(big)
+        times.append(time.perf_counter() - t0)
+    big_mpx = 4946 * 3286 / 1e6
+    MEASURED["jpeg_ms_per_mpx"] = 1e3 * views_s / (len(views) * 0.64)
+    say(f"[13 tools] (a) JPEG: {len(digests)} committed cases decoded natively equal to PIL's digests, "
+        f"{plain_checked} (under {PLAIN_JPEG_MAX_PX} px) also equal to the plain decoder; native "
+        f"decode {MEASURED['jpeg_ms_per_mpx']:.2f} ms/Mpx over the {len(views)} 800x800 views "
+        f"({1e3 * views_s / len(views):.2f} ms a view), 4946x3286 frame "
+        f"{1e3 * float(np.median(times)):.1f} ms ({1e3 * float(np.median(times)) / big_mpx:.2f} ms/Mpx, "
+        f"median of 3); host CPU {host_cpu()}")
+
+
+def scene_load_s(src: Path, dev) -> tuple:
+    t0 = time.perf_counter()
+    scene = Scene(ModelParams(sh_degree=SH_DEGREE, source_path=str(src), model_path="", eval=True),
+                  shuffle=False, device=dev, ply_path=str(FLAGSHIP_PLY))
+    return scene, time.perf_counter() - t0
+
+
+def phase_tools_jpeg_scene(dev) -> dict:
+    """(b) The JPEG COLMAP flagship: load time beside the PNG copy's, the
+    render and metrics CLIs held to JAX's numbers, 100 iterations from
+    points3d, and the 4946x3286 frame through the -r -1 rule."""
+    src = TOOLS_DIR / "flagship800_jpg"
+    shutil.copytree(JPEG_SCENE, src)
+    loads = []
+    for _ in range(2):
+        scene, s = scene_load_s(src, dev)
+        loads.append(s)
+    n_test = len(scene.getTestCameras())
+    n_views = len(list((src / "images").glob("*.jpg")))
+    png_s = MEASURED.get("png_bin_scene_load_s", float("nan"))
+    say(f"[13 tools] (b) JPEG COLMAP flagship ({n_views} views): scene load "
+        + ", ".join(f"{s:.2f}" for s in loads) + f" s, beside phase 11's binary PNG copy {png_s:.2f} s; "
+        f"{len(scene.getTrainCameras())} train, {n_test} test")
+    if (len(scene.getTrainCameras()), n_test) != (n_views - len(range(0, n_views, 8)), len(range(0, n_views, 8))):
+        raise AssertionError(f"JPEG copy: {len(scene.getTrainCameras())} train, {n_test} test")
+    per_view, launches, wall = render_and_score(src, TOOLS_DIR / "model_jpg", dev)
+    failures = []
+    for i, name in enumerate(sorted(per_view["PSNR"])):
+        p, q = per_view["PSNR"][name], per_view["SSIM"][name]
+        dp, ds = p - JAX_JPG_PSNR[i], q - JAX_JPG_SSIM[i]
+        say(f"[13 tools] (b) JPEG copy {name}: PSNR {p:.4f} (JAX {JAX_JPG_PSNR[i]:.4f}, d {dp:+.5f}) "
+            f"SSIM {q:.6f} (JAX {JAX_JPG_SSIM[i]:.6f}, d {ds:+.2e})")
+        if abs(dp) > PSNR_BAR or abs(ds) > SSIM_BAR:
+            failures.append(name)
+    if len(per_view["PSNR"]) != n_test or launches != only(A=n_test, B=n_test) or failures:
+        raise AssertionError(f"render+metrics on the JPEG copy: {len(per_view['PSNR'])} views, "
+                             f"launches {launches}, views off JAX's numbers {failures}")
+    say(f"[13 tools] (b) render+metrics CLIs: {wall:.2f} s, launches A {launches['A']} B {launches['B']}")
+    total = dict(launches)
+
+    out_dir = TOOLS_DIR / "train_jpg"
+    argv = ["-s", src, "-m", out_dir, "--eval", "--iterations", SCRATCH_ITERS,
+            "--densify_from_iter", 20, "--densification_interval", 25, "--densify_until_iter", 90,
+            "--test_iterations", 10, SCRATCH_ITERS, "--save_iterations", SCRATCH_ITERS,
+            "--checkpoint_iterations", SCRATCH_ITERS, "--device", dev.type]
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_cli(train_main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    rows = [r.split("\t") for r in (out_dir / "losses.tsv").read_text().strip().splitlines()[1:]]
+    (it0, l1_0, psnr_0, n_0), (it1, l1_1, psnr_1, n_1) = rows
+    reports = len(rows) * (n_test + 25)  # the test views and train views 5..29
+    expected = only(A=SCRATCH_ITERS + reports, B=SCRATCH_ITERS, C=SCRATCH_ITERS, D=SCRATCH_ITERS)
+    rate = [ln for ln in out.splitlines() if ln.startswith("Trained ")]
+    say(f"[13 tools] (b) train CLI on the JPEG copy from points3d: test L1 {float(l1_0):.5f} -> "
+        f"{float(l1_1):.5f}, PSNR {float(psnr_0):.3f} -> {float(psnr_1):.3f}, Gaussians {n_0} -> {n_1}; "
+        f"{rate[0] if rate else 'no rate line'}; call {wall:.2f} s; launches {launches}")
+    if not float(l1_1) < float(l1_0) or launches != expected:
+        raise AssertionError(f"JPEG training: L1 {l1_0} -> {l1_1}, launches {launches}, expected {expected}")
+    total = {k: total[k] + launches[k] for k in total}
+
+    big = TOOLS_DIR / "big"
+    (big / "images").mkdir(parents=True)
+    shutil.copyfile(JPEG_CASES / JPEG_BIG, big / "images" / JPEG_BIG)
+    xyz, rgb = colmap_scene.point_cloud_u8(str(FLAGSHIP_SCENE / "points3d.ply"))
+    _, poses = colmap_scene.blender_poses(str(FLAGSHIP_SCENE), "train")
+    colmap_scene.write_sparse(str(big), colmap_scene.pinhole(4946, 3286, 0.9), [(JPEG_BIG, poses[0][1])],
+                              xyz, rgb)
+    t0 = time.perf_counter()
+    scene = Scene(ModelParams(sh_degree=SH_DEGREE, source_path=str(big), model_path="", eval=False),
+                  shuffle=False, device=dev, ply_path=str(FLAGSHIP_PLY))
+    load_s = time.perf_counter() - t0
+    gt = scene.getTrainCameras()[0].gt_image.cpu().numpy()
+    decoded = jpeg_ops.read_jpeg_native(str(big / "images" / JPEG_BIG))
+    want = gt_from_image(decoded, target_size(-1, 4946, 3286))
+    say(f"[13 tools] (b) 4946x3286 JPEG through -r -1: GT {gt.shape[2]}x{gt.shape[1]}, equal to the "
+        f"plain resize of the same decode: {np.array_equal(gt, want)}; scene load {load_s:.2f} s")
+    if gt.shape != (3, 1063, 1600) or not np.array_equal(gt, want):
+        raise AssertionError(f"the 1.6K GT of the 4946x3286 JPEG: {gt.shape}, or differs from the plain resize")
+    return total
+
+
+def _viewer_message(cam, train: int, keep_alive: int, scaling_modifier: float) -> bytes:
+    """A SIBR viewer's request for `cam`: the transposed matrices with the
+    y/z columns flipped, as the viewer sends them."""
+    view = cam.world_view_transform.cpu().numpy().copy()
+    proj = cam.full_proj_transform.cpu().numpy().copy()
+    view[:, 1] *= -1
+    view[:, 2] *= -1
+    proj[:, 1] *= -1
+    fovx = 2 * math.atan(float(cam.tanfovx))
+    fovy = 2 * math.atan(float(cam.tanfovy))
+    msg = {"resolution_x": cam.image_width, "resolution_y": cam.image_height, "train": train,
+           "fov_x": fovx, "fov_y": fovy, "z_near": 0.01, "z_far": 100.0, "shs_python": 0,
+           "rot_scale_python": 0, "keep_alive": keep_alive, "scaling_modifier": scaling_modifier,
+           "view_matrix": view.ravel().tolist(), "view_projection_matrix": proj.ravel().tolist()}
+    payload = json.dumps(msg).encode()
+    return len(payload).to_bytes(4, "little") + payload
+
+
+def _recv_exact(sock, n: int) -> bytes:
+    buf = b""
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        if not chunk:
+            raise ConnectionError("the server closed the connection")
+        buf += chunk
+    return buf
+
+
+def phase_tools_viewer(dev) -> dict:
+    """(c) `python -m sgs_tpu_torch.train_lgm` with the viewer listening: a
+    client holds the loop (train=0), takes two frames, then releases it;
+    every served frame equals `image_to_bytes` of the trainer's render of
+    the same camera and scaling modifier, rendered while the loop is held."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    views = read_nerf_synthetic_split(str(LGM_SCENE), "test", WHITE_BACKGROUND, -1, dev)
+    requests = [(views[0].camera, 0, 1, 1.0), (views[1].camera, 0, 1, 0.8), (views[2].camera, 1, 0, 1.0)]
+    served, stamps, errors = [], [], []
+    real_serve = network_gui.serve
+
+    def spy(render_cb, source_path, iteration, max_iterations, device="cuda"):
+        stamps.append((iteration, time.perf_counter()))
+        spy.render_cb = render_cb
+        real_serve(render_cb, source_path, iteration, max_iterations, device)
+
+    def expected(cam, sm):
+        a = flat_raster.KERNEL.launches
+        with torch.no_grad():
+            want = network_gui.image_to_bytes(spy.render_cb(cam, sm))
+        flat_raster.KERNEL.launches = a
+        return want
+
+    def client():
+        try:
+            while len(stamps) < VIEWER_CONNECT_AT:
+                time.sleep(0.005)
+            with socket.create_connection(("127.0.0.1", port), timeout=60) as c:
+                for cam, train, keep_alive, sm in requests:
+                    # the trainer's render of the request, made while the
+                    # loop is held (after the first frame): its parameters
+                    # are the served frame's; the launch is not counted
+                    if train:
+                        want = expected(cam, sm)
+                    c.sendall(_viewer_message(cam, train, keep_alive, sm))
+                    image = _recv_exact(c, cam.image_width * cam.image_height * 3)
+                    path = _recv_exact(c, int.from_bytes(_recv_exact(c, 4), "little")).decode()
+                    if not train:
+                        want = expected(cam, sm)
+                    served.append((image == want, path, stamps[-1][0]))
+        except Exception as e:  # reported by the main thread
+            errors.append(repr(e))
+
+    out_dir = TOOLS_DIR / "train_lgm_viewer"
+    argv = ["-s", LGM_SCENE, "-m", out_dir, "--eval", "--iterations", VIEWER_ITERS,
+            "--downsample_init", LGM_DOWNSAMPLE, "--sh_degree", 0, "--port", port,
+            "--test_iterations", VIEWER_ITERS, "--save_iterations", VIEWER_ITERS,
+            "--checkpoint_iterations", VIEWER_ITERS, "--device", dev.type]
+    th = threading.Thread(target=client, daemon=True)
+    network_gui.serve = spy
+    reset_counts()
+    th.start()
+    try:
+        t0 = time.perf_counter()
+        out = run_cli(train_lgm_main, argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        network_gui.serve = real_serve
+        network_gui.close()
+    th.join(timeout=30)
+    launches = read_counts()
+    gaps = np.diff([t for _, t in stamps[20:VIEWER_CONNECT_AT]])
+    step_ms = 1e3 * float(np.median(gaps))
+    n_train = len(json.loads((LGM_SCENE / "transforms_train.json").read_text())["frames"])
+    n_report = len(views) + min(8, n_train)  # the test views and train[:8]
+    expected = only(A=VIEWER_ITERS + n_report + len(requests), B=VIEWER_ITERS, C=VIEWER_ITERS,
+                    D=VIEWER_ITERS)
+    lgm_ms = 1e3 / MEASURED["lgm_it_s"] if "lgm_it_s" in MEASURED else float("nan")
+    say(f"[13 tools] (c) viewer on train_lgm (port {port}): {len(served)} requests served at iteration "
+        f"{served[0][2] if served else None}, frames equal to image_to_bytes of the trainer's render "
+        f"{[bool(s[0]) for s in served]}, source path {served[0][1] if served else None}; step "
+        f"{step_ms:.3f} ms (median, iterations 21-{VIEWER_CONNECT_AT}, listener open, no client) beside "
+        f"phase 10's {lgm_ms:.3f} ms (its 3,000-iteration rate); call {wall:.2f} s; launches {launches}")
+    if errors or len(served) != len(requests) or not all(s[0] for s in served) \
+            or any(s[1] != str(LGM_SCENE) for s in served):
+        raise AssertionError(f"viewer: errors {errors}, served {served}")
+    if "Training complete." not in out or launches != expected \
+            or not (out_dir / f"chkpnt{VIEWER_ITERS}.npz").exists():
+        raise AssertionError(f"train_lgm with the viewer did not finish: launches {launches}, "
+                             f"expected {expected}")
+    return launches
+
+
+def phase_tools_view(dev) -> dict:
+    """(d) `python -m sgs_tpu_torch.view` on the flagship: 24 frames at
+    512x512 through Kernel A, each within VIEW_ATOL of the plain render,
+    and the GIF's fields."""
+    model_dir = TOOLS_DIR / "view_model"
+    snap = model_dir / "point_cloud" / "iteration_15000" / "point_cloud.ply"
+    snap.parent.mkdir(parents=True)
+    shutil.copyfile(FLAGSHIP_PLY, snap)
+    out_dir = TOOLS_DIR / "orbit"
+    argv = ["-m", model_dir, "--frames", VIEW_FRAMES, "--width", VIEW_SIZE, "--image_height", VIEW_SIZE,
+            "--out", out_dir, "--device", dev.type]
+    reset_counts()
+    t0 = time.perf_counter()
+    run_cli(view_cli.main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    args = view_cli.build_parser().parse_args([str(a) for a in argv])
+    arrays = load_gaussian_ply(str(snap), SH_DEGREE)
+    model = GaussianModel.from_ply(str(snap), SH_DEGREE, dev)
+    center = arrays["xyz"].mean(axis=0)
+    spread = float(np.abs(arrays["xyz"] - center).max())
+    bg = torch.zeros(3, device=dev)
+    worst, a_ms = 0.0, []
+    with torch.no_grad():
+        inputs = model.render_inputs(SH_DEGREE)
+        for i, cam in enumerate(view_cli.orbit_cameras(center, spread, args, dev)):
+            img = render(cam, inputs, bg, mode="tiled")["render"]
+            with plain_path():
+                ref = render(cam, inputs, bg, mode="tiled")["render"]
+            worst = max(worst, float((img - ref).abs().max()))
+            frame = read_png(str(out_dir / f"frame_{i:03d}.png"))
+            if not np.array_equal(frame, (np.clip(img.cpu().numpy().transpose(1, 2, 0), 0, 1) * 255)
+                                  .astype(np.uint8)):
+                raise AssertionError(f"view frame {i} is not the quantised Kernel A render")
+            if i in (0, VIEW_FRAMES // 4):
+                _, kargs = raster_inputs(project_and_shade(cam, inputs), cam.image_width, cam.image_height)
+                a_ms.append((time_ms(lambda: flat_raster.rasterize_tiles(*kargs), 20), kargs[2].shape[0],
+                             int((kargs[1] - kargs[0]).max())))
+    gif = read_gif_info(str(out_dir / "orbit.gif"))
+    say(f"[13 tools] (d) view CLI: {VIEW_FRAMES} frames at {VIEW_SIZE}x{VIEW_SIZE} in {wall:.2f} s "
+        f"(the GIF included), launches {launches}; every frame within {worst:.2e} of the plain render "
+        f"(bar {VIEW_ATOL}); Kernel A device ms on frames 0 and {VIEW_FRAMES // 4}: "
+        + ", ".join(f"{t:.4f} ({n} instances, longest tile list {m})" for t, n, m in a_ms)
+        + f"; orbit.gif {gif}")
+    if launches != only(A=VIEW_FRAMES) or worst > VIEW_ATOL:
+        raise AssertionError(f"view: launches {launches}, worst {worst}")
+    if gif != {"header": "GIF89a", "size": (VIEW_SIZE, VIEW_SIZE), "loop": 0,
+               "delays_ms": [120] * VIEW_FRAMES, "frames": VIEW_FRAMES}:
+        raise AssertionError(f"orbit.gif fields {gif}")
+    MEASURED["view_a_ms"] = a_ms
+    return launches
+
+
+def phase_tools_scenes(dev) -> dict:
+    """(e) data/lgm400 regenerated by the ray tracer and held to the
+    committed files; a 128x128 toy Blender scene through the oracle, then
+    200 training iterations on it."""
+    dst = TOOLS_DIR / "lgm400"
+    t0 = time.perf_counter()
+    make_raytraced_dataset(str(dst), **LGM_RAYTRACE)
+    rt_s = time.perf_counter() - t0
+    flips = pixels = worst = 0
+    names = sorted(p.relative_to(LGM_SCENE) for p in LGM_SCENE.glob("*/*.png"))
+    for rel in names:
+        a = read_png(str(LGM_SCENE / rel)).astype(np.int16)
+        b = read_png(str(dst / rel)).astype(np.int16)
+        d = np.abs(a - b)
+        worst = max(worst, int(d.max()))
+        flips += int((d.max(axis=2) > 0).sum())
+        pixels += d.shape[0] * d.shape[1]
+    xyz_err = float(np.abs(load_point_cloud_ply(str(dst / "points3d.ply"))[0]
+                           - load_point_cloud_ply(str(LGM_SCENE / "points3d.ply"))[0]).max())
+    same_json = all((dst / f).read_text() == (LGM_SCENE / f).read_text()
+                    for f in ("transforms_train.json", "transforms_test.json"))
+    say(f"[13 tools] (e) ray tracer: data/lgm400 regenerated ({len(names)} views at "
+        f"{LGM_RAYTRACE['width']}x{LGM_RAYTRACE['height']}) in "
+        f"{rt_s:.2f} s: largest byte difference {worst}, {flips} of {pixels} pixels differ "
+        f"(bar: 1 LSB on under {RAYTRACE_FLIP_SHARE:.1%}), points3d.ply within {xyz_err:.1e}, JSON equal "
+        f"{same_json}")
+    if len(names) != LGM_RAYTRACE["n_train"] + LGM_RAYTRACE["n_test"] or worst > 1 or flips > RAYTRACE_FLIP_SHARE * pixels or xyz_err > RAYTRACE_XYZ_ATOL \
+            or not same_json:
+        raise AssertionError("the regenerated data/lgm400 differs from the committed one")
+
+    toy = TOOLS_DIR / "toy128"
+    reset_counts()
+    t0 = time.perf_counter()
+    make_blender_dataset(str(toy), width=BLENDER_SIZE, height=BLENDER_SIZE, device=dev)
+    toy_s = time.perf_counter() - t0
+    if read_counts() != only():
+        raise AssertionError(f"the oracle launched kernels: {read_counts()}")
+    out_dir = TOOLS_DIR / "train_toy"
+    argv = ["-s", toy, "-m", out_dir, "--eval", "-w", "--iterations", BLENDER_ITERS,
+            "--test_iterations", 1, BLENDER_ITERS, "--save_iterations", BLENDER_ITERS,
+            "--checkpoint_iterations", BLENDER_ITERS, "--device", dev.type]
+    t0 = time.perf_counter()
+    out = run_cli(train_main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    rows = [r.split("\t") for r in (out_dir / "losses.tsv").read_text().strip().splitlines()[1:]]
+    (_, l1_0, psnr_0, _), (_, l1_1, psnr_1, _) = rows
+    rate = [ln for ln in out.splitlines() if ln.startswith("Trained ")]
+    say(f"[13 tools] (e) toy Blender scene (16 + 4 views at {BLENDER_SIZE}x{BLENDER_SIZE}, the oracle's "
+        f"GT) written in {toy_s:.2f} s; {BLENDER_ITERS} iterations: test L1 {float(l1_0):.5f} -> "
+        f"{float(l1_1):.5f}, PSNR {float(psnr_0):.3f} -> {float(psnr_1):.3f}; "
+        f"{rate[0] if rate else 'no rate line'}; call {wall:.2f} s; launches {launches}")
+    steps = BLENDER_ITERS
+    reports = 2 * (4 + 25)  # the 4 test views and train views 5..29 at each report
+    if not float(l1_1) < float(l1_0) or launches != only(A=steps + reports, B=steps, C=steps, D=steps):
+        raise AssertionError(f"toy training: L1 {l1_0} -> {l1_1}, launches {launches}")
+    return launches
+
+
+def phase_tools_analyze(dev) -> None:
+    """(f) `python -m sgs_tpu_torch.analyze_model` on the flagship: JAX's
+    printed lines, and the PCA PLYs reload."""
+    out = TOOLS_DIR / "analysis"
+    reset_counts()
+    t0 = time.perf_counter()
+    printed = run_cli(analyze_main, ["--ply", FLAGSHIP_PLY, "--out", out, "--device", dev.type])
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in printed.splitlines() if ln]
+    n_flagship = load_gaussian_ply(str(FLAGSHIP_PLY), SH_DEGREE)["xyz"].shape[0]
+    counts = []
+    for tag in ("unnorm", "normal"):
+        a = load_gaussian_ply(str(out) + f"_ply_{tag}/point_cloud.ply", SH_DEGREE)
+        # the xyz are the model's; an opacity of 1 turns to inf in the
+        # inverse sigmoid, in JAX's analyze_model.py as here
+        counts.append(int(a["xyz"].shape[0]) if np.isfinite(a["xyz"]).all() else -1)
+    say(f"[13 tools] (f) analyze_model: {lines} (JAX {JAX_ANALYZE_LINES}); PCA PLYs reload with "
+        f"{counts} Gaussians; {sorted(p.name for p in out.iterdir())}; {wall:.2f} s; "
+        f"launches {read_counts()}")
+    if lines != JAX_ANALYZE_LINES or counts != [n_flagship, n_flagship] or read_counts() != only():
+        raise AssertionError(f"analyze_model: {lines}, {counts}")
+
+
+def phase_tools(dev) -> dict:
+    """Phase 13: the JPEG decoder, the JPEG COLMAP flagship, the viewer,
+    view, the scene generators and analyze_model; returns A-D's launches
+    summed over its runs."""
+    t0 = time.perf_counter()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    TOOLS_DIR.mkdir(parents=True)
+    walls = {}
+    phase_tools_jpeg()
+    walls["a"] = time.perf_counter() - t0
+    total = only()
+    for part, run in (("b", phase_tools_jpeg_scene), ("c", phase_tools_viewer), ("d", phase_tools_view),
+                      ("e", phase_tools_scenes), ("f", phase_tools_analyze)):
+        t1 = time.perf_counter()
+        launches = run(dev) or only()
+        walls[part] = time.perf_counter() - t1
+        total = {k: total[k] + launches[k] for k in total}
+    say(f"[13 tools] phase wall {time.perf_counter() - t0:.2f} s ("
+        + ", ".join(f"({k}) {v:.2f}" for k, v in walls.items()) + f"); launches over (b)-(e) {total}")
+    return total
+
+
 def main(device: str = "cuda") -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2029,11 +2528,13 @@ def main(device: str = "cuda") -> int:
     phase_lgm_train(dev)
     readers = phase_readers(dev)
     evals = phase_eval(dev, views)
+    tools = phase_tools(dev)
     for entry, k in zip(kernels, "ABCD"):
         entry["readers_launches"] = readers[k]
+        entry["tools_launches"] = tools[k]
         if k in "AB":
             entry["eval_launches"] = evals["launches"][k]
-    say(f"[13 done] chip_smoke wall {time.perf_counter() - t_start:.2f} s")
+    say(f"[14 done] chip_smoke wall {time.perf_counter() - t_start:.2f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -59,3 +59,33 @@ class Camera:
             image_width=int(width),
             image_height=int(height),
         )
+
+    @classmethod
+    def from_matrices(
+        cls,
+        world_view_transform: np.ndarray,
+        full_proj_transform: np.ndarray,
+        fovx: float,
+        fovy: float,
+        width: int,
+        height: int,
+        device: "str | torch.device" = "cuda",
+    ) -> "Camera":
+        """A pose-only camera from transposed matrices, as the network viewer
+        sends them: the centre is the inverse of the view matrix, all in f32."""
+        view_T = np.asarray(world_view_transform, dtype=np.float32)
+        center = np.linalg.inv(view_T)[3, :3]
+        device = resolve_device(device)
+
+        def f32(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.float32), device=device)
+
+        return cls(
+            world_view_transform=f32(view_T),
+            full_proj_transform=f32(full_proj_transform),
+            camera_center=f32(center),
+            tanfovx=f32(math.tan(fovx * 0.5)),
+            tanfovy=f32(math.tan(fovy * 0.5)),
+            image_width=int(width),
+            image_height=int(height),
+        )

@@ -115,5 +115,6 @@ def camera_to_json(idx: int, cam: CameraInfo) -> dict:
 def read_nerf_synthetic_split(path: str, split: str, white_background: bool, resolution: int = -1,
                               device: "str | torch.device" = "cuda") -> List[LoadedCamera]:
     """Load `transforms_<split>.json` of a NeRF-synthetic scene as cameras."""
-    infos = read_cameras_from_transforms(path, f"transforms_{split}.json", white_background)
+    infos = read_cameras_from_transforms(path, f"transforms_{split}.json", white_background,
+                                         device=device)
     return camera_list_from_infos(infos, 1.0, resolution, device)

@@ -25,8 +25,13 @@ Conventions, as the JAX package's:
 - the scene extent is 1.1 x the largest distance of a train camera centre
   from their mean (NeRF++ normalisation).
 
-Only PNG decodes: a JPEG, palette or 16-bit image raises an error that
-names the file and its format.
+Images decode by their magic bytes: PNG through `png.py` (a palette or
+16-bit PNG raises), JPEG through `jpeg.py`'s decoder, equal to PIL's
+bits: the native one (`ops/jpeg.py`) for a scene loaded for the card, the
+plain one only when the caller asks for the CPU. A grayscale JPEG is
+(H, W, 1), as a gray PNG; anything that is not baseline or extended
+sequential JPEG raises, naming the file and the marker. Every reader
+takes the `device` it loads for.
 """
 
 from __future__ import annotations
@@ -39,11 +44,13 @@ from pathlib import Path
 from typing import List, NamedTuple, Optional
 
 import numpy as np
+import torch
 
 from sgs_tpu_torch.core.projection import focal2fov, fov2focal, world_to_view
 from sgs_tpu_torch.core.sh import C0
 from sgs_tpu_torch.data import colmap
 from sgs_tpu_torch.data.mesh import load_mesh_triangle_centroids
+from sgs_tpu_torch.data.jpeg import read_jpeg
 from sgs_tpu_torch.data.ply import load_point_cloud_ply, save_point_cloud_ply
 from sgs_tpu_torch.data.png import read_png
 
@@ -86,14 +93,20 @@ def get_nerfpp_norm(cam_infos: List[CameraInfo]) -> dict:
     return {"translate": -avg, "radius": diagonal * 1.1}
 
 
-def decode_image(path: str) -> np.ndarray:
-    """(H, W, C) uint8 of a PNG file; any other format raises."""
+def decode_image(path: str, device: "str | torch.device" = "cuda") -> np.ndarray:
+    """(H, W, C) uint8 of a PNG or JPEG file; a JPEG decodes natively for a
+    CUDA device and with the plain decoder for the CPU."""
     with open(path, "rb") as f:
         head = f.read(3)
-    if head == _JPEG_MAGIC:
-        raise ValueError(f"{path}: JPEG image; the port decodes PNG only (there is no PIL on the "
-                         "card), so convert the images to PNG")
-    return read_png(path)
+    if head != _JPEG_MAGIC:
+        return read_png(path)
+    if torch.device(device).type == "cuda":
+        from sgs_tpu_torch.ops.jpeg import read_jpeg_native
+
+        image = read_jpeg_native(path)
+    else:
+        image = read_jpeg(path)
+    return image[:, :, None] if image.ndim == 2 else image
 
 
 def sh_to_rgb(shs: np.ndarray) -> np.ndarray:
@@ -111,7 +124,7 @@ def _fetch_ply(path: str) -> Optional[PointCloud]:
 # ------------------------------------------------------------------- COLMAP
 
 def read_colmap_scene(path: str, images: Optional[str], eval_split: bool,
-                      llffhold: int = 8) -> SceneInfo:
+                      llffhold: int = 8, device: "str | torch.device" = "cuda") -> SceneInfo:
     sparse = os.path.join(path, "sparse/0")
     if not os.path.isdir(sparse):
         sparse = os.path.join(path, "sparse")
@@ -141,7 +154,7 @@ def read_colmap_scene(path: str, images: Optional[str], eval_split: bool,
         cam_infos.append(CameraInfo(
             uid=cam.id, R=colmap.qvec2rotmat(im.qvec).T, T=np.array(im.tvec),
             FovY=focal2fov(fy, cam.height), FovX=focal2fov(fx, cam.width),
-            image=decode_image(image_path), image_path=image_path,
+            image=decode_image(image_path, device), image_path=image_path,
             image_name=os.path.basename(image_path).split(".")[0],
             width=cam.width, height=cam.height,
         ))
@@ -189,7 +202,8 @@ def composite_background(image: np.ndarray, white_background: bool) -> np.ndarra
 
 
 def read_cameras_from_transforms(
-    path: str, transformsfile: str, white_background: bool, extension: str = ".png"
+    path: str, transformsfile: str, white_background: bool, extension: str = ".png",
+    device: "str | torch.device" = "cuda",
 ) -> List[CameraInfo]:
     cam_infos = []
     with open(os.path.join(path, transformsfile)) as f:
@@ -205,7 +219,7 @@ def read_cameras_from_transforms(
         w2c = np.linalg.inv(c2w)
         R = w2c[:3, :3].T
         T = w2c[:3, 3]
-        image = composite_background(decode_image(cam_name), white_background)
+        image = composite_background(decode_image(cam_name, device), white_background)
         height, width = image.shape[:2]
         fovy = focal2fov(fov2focal(fovx, width), height)
         cam_infos.append(
@@ -219,10 +233,10 @@ def read_cameras_from_transforms(
 
 
 def read_nerf_synthetic_scene(path: str, white_background: bool, eval_split: bool,
-                              extension: str = ".png") -> SceneInfo:
-    train = read_cameras_from_transforms(path, "transforms_train.json", white_background, extension)
+                              extension: str = ".png", device: "str | torch.device" = "cuda") -> SceneInfo:
+    train = read_cameras_from_transforms(path, "transforms_train.json", white_background, extension, device)
     test = (
-        read_cameras_from_transforms(path, "transforms_test.json", white_background, extension)
+        read_cameras_from_transforms(path, "transforms_test.json", white_background, extension, device)
         if os.path.exists(os.path.join(path, "transforms_test.json")) else []
     )
     if not eval_split:
@@ -246,7 +260,8 @@ ZERO123_FOCAL_MM, ZERO123_SENSOR_MM = 35, 32  # Blender's default lens
 
 
 def read_cameras_from_zero123(path: str, white_background: bool, extension: str = ".png",
-                              train_split: bool = True) -> List[CameraInfo]:
+                              train_split: bool = True,
+                              device: "str | torch.device" = "cuda") -> List[CameraInfo]:
     image_files = sorted(glob.glob(os.path.join(path, "*" + extension)))
     image_files = (image_files[:ZERO123_TRAIN_VIEWS] if train_split
                    else image_files[ZERO123_TRAIN_VIEWS:])
@@ -256,7 +271,7 @@ def read_cameras_from_zero123(path: str, white_background: bool, extension: str 
         w2c[1:3, :3] *= -1  # Blender -> COLMAP rows
         R = w2c[:3, :3].T
         T = -w2c[:3, 3]
-        image = composite_background(decode_image(frame_path), white_background)
+        image = composite_background(decode_image(frame_path, device), white_background)
         height, width = image.shape[:2]
         fov = focal2fov(ZERO123_FOCAL_MM, ZERO123_SENSOR_MM)
         cam_infos.append(
@@ -271,12 +286,13 @@ def read_cameras_from_zero123(path: str, white_background: bool, extension: str 
 
 def read_mesh_scene(path: str, white_background: bool, eval_split: bool,
                     obj_path: Optional[str] = None, extension: str = ".png",
-                    decimate_factor: float = 1.0, mesh_max_faces: int = -1) -> SceneInfo:
+                    decimate_factor: float = 1.0, mesh_max_faces: int = -1,
+                    device: "str | torch.device" = "cuda") -> SceneInfo:
     """Zero123 scene: init points at the mesh's triangle centroids."""
     if obj_path is None:
         raise NotImplementedError("non-Zero123 mesh datasets (matching reference)")
-    train = read_cameras_from_zero123(path, white_background, extension, True)
-    test = read_cameras_from_zero123(path, white_background, extension, False)
+    train = read_cameras_from_zero123(path, white_background, extension, True, device)
+    test = read_cameras_from_zero123(path, white_background, extension, False, device)
     if not eval_split:
         train, test = train + test, []
     norm = get_nerfpp_norm(train)

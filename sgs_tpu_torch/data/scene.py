@@ -49,19 +49,20 @@ def search_for_max_iteration(folder: str) -> Optional[int]:
     return max(iters) if iters else None
 
 
-def read_scene(args) -> SceneInfo:
-    """The reader that the source directory's marker file selects."""
+def read_scene(args, device: "str | torch.device" = "cuda") -> SceneInfo:
+    """The reader that the source directory's marker file selects, decoding
+    for `device`."""
     src = args.source_path
     if os.path.exists(os.path.join(src, "mesh3d.ply")):
         return read_mesh_scene(src, args.white_background, args.eval,
-                               decimate_factor=args.decimate_factor)
+                               decimate_factor=args.decimate_factor, device=device)
     if os.path.exists(os.path.join(src, "000.npy")):
         return read_mesh_scene(src, args.white_background, args.eval, obj_path=args.obj_path,
-                               mesh_max_faces=args.mesh_max_faces)
+                               mesh_max_faces=args.mesh_max_faces, device=device)
     if os.path.exists(os.path.join(src, "sparse")):
-        return read_colmap_scene(src, args.images, args.eval)
+        return read_colmap_scene(src, args.images, args.eval, device=device)
     if os.path.exists(os.path.join(src, "transforms_train.json")):
-        return read_nerf_synthetic_scene(src, args.white_background, args.eval)
+        return read_nerf_synthetic_scene(src, args.white_background, args.eval, device=device)
     raise ValueError(f"Could not recognize scene type in {src}!")
 
 
@@ -81,7 +82,7 @@ class Scene:
             else:
                 self.loaded_iter = load_iteration
             print(f"Loading trained model at iteration {self.loaded_iter}")
-        scene_info = read_scene(args)
+        scene_info = read_scene(args, device)
         self.scene_info = scene_info
 
         if not self.loaded_iter and self.model_path:

@@ -19,9 +19,7 @@ get_psnr.py passes no mode, so JAX renders its numbers with the oracle.
 
 from __future__ import annotations
 
-import contextlib
 import os
-import random
 import sys
 from argparse import ArgumentParser
 
@@ -36,6 +34,7 @@ from sgs_tpu_torch.utils.config import (
     add_dataclass_args,
     extract_dataclass,
 )
+from sgs_tpu_torch.utils.general import stamped
 
 
 def build_parser() -> ArgumentParser:
@@ -54,12 +53,7 @@ def main(argv=None) -> None:
     dataset = extract_dataclass(ModelParams, args)
     if not dataset.model_path:
         dataset.model_path = os.path.join("./output/", "get_psnr")
-    random.seed(0)
-    np.random.seed(0)
-    torch.manual_seed(0)
-    with open(os.devnull, "w") as null, contextlib.ExitStack() as stack:
-        if args.quiet:
-            stack.enter_context(contextlib.redirect_stdout(null))
+    with stamped(args.quiet):
         evaluate(dataset, args.start_checkpoint, args.device)
 
 

@@ -14,15 +14,15 @@ rendered as part of train and no test set is written. Writes
 <model>/{train,test}/ours_<iteration>/{renders,gt}/%05d.png. Two flags are
 the port's own: --ply renders that file in place of the model
 directory's snapshot (--iteration then only names the output), and
---device cpu runs the plain PyTorch versions of the kernels.
+--device cpu runs the plain PyTorch versions of the kernels. Printed
+lines carry `utils/general.safe_state`'s time stamp (--quiet silences
+them), and stdout is put back when the call returns.
 `--rasterizer reference` renders with the O(N*P) oracle in place of
 binning and Kernel A.
 """
 
 from __future__ import annotations
 
-import contextlib
-import os
 from argparse import ArgumentParser
 from pathlib import Path
 from typing import List, Optional
@@ -44,6 +44,7 @@ from sgs_tpu_torch.utils.config import (
     extract_dataclass,
     get_combined_args,
 )
+from sgs_tpu_torch.utils.general import stamped
 
 
 def quantize(image_chw: torch.Tensor) -> np.ndarray:
@@ -106,9 +107,7 @@ def main(argv=None) -> None:
     if not args.model_path:
         raise SystemExit("render: -m/--model_path is required")
     print("Rendering " + args.model_path)
-    with open(os.devnull, "w") as null, contextlib.ExitStack() as stack:
-        if args.quiet:
-            stack.enter_context(contextlib.redirect_stdout(null))
+    with stamped(args.quiet):
         render_sets(extract_dataclass(ModelParams, args), args.iteration,
                     extract_dataclass(PipelineParams, args), args.skip_train, args.skip_test,
                     getattr(args, "ply", None), args.device)

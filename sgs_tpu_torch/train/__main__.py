@@ -11,20 +11,22 @@ unused, as in JAX; --detect_anomaly turns on
 `training(...)` call to <profile_dir>/trace.json (JAX: a `jax.profiler`
 trace over the same window). `--rasterizer reference` trains through
 the O(N*P) oracle, its backward by autograd. Runs on the card; --device
-cpu runs the plain PyTorch versions of the kernels instead. Not ported:
---parallel dp|hybrid, the network viewer (--ip/--port are accepted and
-unused) and tensorboard.
+cpu runs the plain PyTorch versions of the kernels instead.
+`utils/general.safe_state` stamps every printed line (--quiet silences
+them) and seeds `random`, `numpy` and `torch` with 0; stdout is put back
+when the call returns. The trainer serves the network viewer once per
+iteration, but this CLI starts no listener, as `train.py` starts none
+(--ip/--port are accepted and unused). Not ported: --parallel dp|hybrid
+and tensorboard.
 """
 
 from __future__ import annotations
 
 import os
-import random
 import sys
 import uuid
 from argparse import ArgumentParser, Namespace
 
-import numpy as np
 import torch
 
 from sgs_tpu_torch.utils.config import (
@@ -34,6 +36,7 @@ from sgs_tpu_torch.utils.config import (
     add_dataclass_args,
     extract_dataclass,
 )
+from sgs_tpu_torch.utils.general import stamped
 
 
 def build_parser() -> ArgumentParser:
@@ -70,33 +73,29 @@ def main(argv=None) -> None:
     os.makedirs(dataset.model_path, exist_ok=True)
     with open(os.path.join(dataset.model_path, "opt_args"), "w") as f:
         f.write(str(Namespace(**{k: v for k, v in vars(opt).items() if not k.startswith("_")})))
-    if args.quiet:
-        sys.stdout = open(os.devnull, "w")
-    random.seed(0)
-    np.random.seed(0)
-    torch.manual_seed(0)
-    if args.detect_anomaly:
-        torch.autograd.set_detect_anomaly(True)
+    with stamped(args.quiet):
+        if args.detect_anomaly:
+            torch.autograd.set_detect_anomaly(True)
 
-    from sgs_tpu_torch.train.trainer import training
+        from sgs_tpu_torch.train.trainer import training
 
-    def run() -> None:
-        training(dataset, opt, pipe, args.test_iterations, args.save_iterations,
-                 args.checkpoint_iterations, args.start_checkpoint, device=args.device)
+        def run() -> None:
+            training(dataset, opt, pipe, args.test_iterations, args.save_iterations,
+                     args.checkpoint_iterations, args.start_checkpoint, device=args.device)
 
-    if args.profile_dir:
-        from torch.profiler import ProfilerActivity, profile
+        if args.profile_dir:
+            from torch.profiler import ProfilerActivity, profile
 
-        activities = [ProfilerActivity.CPU]
-        if torch.device(args.device).type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
+            activities = [ProfilerActivity.CPU]
+            if torch.device(args.device).type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            with profile(activities=activities) as prof:
+                run()
+            os.makedirs(args.profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
+        else:
             run()
-        os.makedirs(args.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
-    else:
-        run()
-    print("\nTraining complete.")
+        print("\nTraining complete.")
 
 
 if __name__ == "__main__":

@@ -52,6 +52,7 @@ from sgs_tpu_torch.utils.config import (
     check_rasterizer,
     save_cfg_args,
 )
+from sgs_tpu_torch.viewer import network_gui
 
 LGM_LR = 1.0e-3 / 2
 LGM_EPS = 1e-15
@@ -153,6 +154,12 @@ def training_lgm(dataset: ModelParams, opt: OptimizationParams, pipe: PipelinePa
     ema_loss = 0.0
     t0 = time.time()
     for iteration in range(first_iter + 1, opt.iterations + 1):
+        network_gui.serve(
+            lambda cam, sm: torch.clamp(render(cam, model.render_inputs(active_sh_degree), bg_color,
+                                               scaling_modifier=sm, mode=pipe.rasterizer)["render"],
+                                        0.0, 1.0),
+            dataset.source_path, iteration, opt.iterations, dev,
+        )
         if not viewpoint_stack:
             viewpoint_stack = list(train_cams)
         cam = viewpoint_stack.pop(py_rng.randint(0, len(viewpoint_stack) - 1))

@@ -17,10 +17,13 @@ bucket) and pops the same views. Random backgrounds and split noise come
 from a `torch.Generator` seeded with `seed`.
 
 `--rasterizer reference` trains and reports through the O(N*P) oracle,
-its backward by autograd, as the JAX trainer does. Not ported, each
+its backward by autograd, as the JAX trainer does. Each iteration first
+serves the network viewer (`viewer/network_gui.serve`, a no-op unless a
+listener was started), rendering through `eval_render` with the
+pipeline's rasterizer (Kernel A on the card). Not ported, each
 raising where the JAX trainer would use it: multi-device training
-(--parallel dp|hybrid), the tiled rasterizer without tight culling and
-the network viewer. The port does not import tensorboard:
+(--parallel dp|hybrid) and the tiled rasterizer without tight culling.
+The port does not import tensorboard:
 it prints the line the JAX trainer prints when tensorboard is missing
 ("Tensorboard not available: not logging progress") and trains on.
 """
@@ -40,6 +43,7 @@ from sgs_tpu_torch.models.gaussians import PARAM_FIELDS, DensifyStats
 from sgs_tpu_torch.ops.ssim import l1_loss, psnr
 from sgs_tpu_torch.train import checkpoint as ckpt
 from sgs_tpu_torch.train.loop import TrainState, eval_render, train_step
+from sgs_tpu_torch.viewer import network_gui
 from sgs_tpu_torch.train.optim import AdamState, make_lr_dict
 from sgs_tpu_torch.utils.config import (
     ModelParams,
@@ -131,6 +135,10 @@ def training(dataset: ModelParams, opt: OptimizationParams, pipe: PipelineParams
     t_start = time.time()
     nonfinite_total = 0
     for iteration in range(first_iter + 1, opt.iterations + 1):
+        network_gui.serve(
+            lambda cam, sm: eval_render(state.model, cam, bg_color, active_sh_degree, pipe.rasterizer),
+            dataset.source_path, iteration, opt.iterations, dev,
+        )
         if iteration % 1000 == 0 and active_sh_degree < dataset.sh_degree:
             active_sh_degree += 1
         if not viewpoint_stack:

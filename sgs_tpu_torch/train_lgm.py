@@ -8,25 +8,25 @@ forced to 0. Writes cfg_args, input.ply and cameras.json,
 point_cloud/iteration_*/point_cloud.ply (the decoded Gaussians) and
 chkpnt<iter>.npz (the LGM checkpoint, which the JAX trainer also loads)
 in the model directory; --start_checkpoint resumes from one (a JAX
-checkpoint loads as it is). `random`, `numpy` and `torch` are seeded with
-0, as the JAX CLI seeds `random` and `numpy`, so `--downsample_init`
-keeps the same points. `--rasterizer reference` trains and reports
-through the O(N*P) oracle, its backward by autograd. Runs on the card;
---device cpu runs the plain PyTorch versions of the kernels instead. --ip, --port, --debug_from,
---detect_anomaly and --debug_latent are accepted and unused, as in JAX
-(the network viewer is not ported).
+checkpoint loads as it is). `utils/general.safe_state` stamps every
+printed line (--quiet silences them) and seeds `random`, `numpy` and
+`torch` with 0, as the JAX CLI's seeds `random` and `numpy`, so
+`--downsample_init` keeps the same points; stdout is put back when the
+call returns. The network viewer listens on --ip/--port (127.0.0.1:6009)
+and is served once per iteration; a port that cannot be bound prints
+"network_gui disabled: ..." and training goes on. `--rasterizer
+reference` trains and reports through the O(N*P) oracle, its backward by
+autograd. Runs on the card; --device cpu runs the plain PyTorch versions
+of the kernels instead. --debug_from, --detect_anomaly and --debug_latent
+are accepted and unused, as in JAX.
 """
 
 from __future__ import annotations
 
 import os
-import random
 import sys
 import uuid
 from argparse import ArgumentParser
-
-import numpy as np
-import torch
 
 from sgs_tpu_torch.utils.config import (
     ModelParams,
@@ -35,6 +35,8 @@ from sgs_tpu_torch.utils.config import (
     add_dataclass_args,
     extract_dataclass,
 )
+from sgs_tpu_torch.utils.general import stamped
+from sgs_tpu_torch.viewer import network_gui
 
 DEFAULT_ITERS = [1, 100, 500, 1_000, 3_000, 7_000, 30_000, 45_000, 60_000, 75_000, 90_000]
 
@@ -75,23 +77,23 @@ def main(argv=None) -> None:
     if not dataset.model_path:
         dataset.model_path = os.path.join("./output/", str(uuid.uuid4())[0:10])
     print("Optimizing " + dataset.model_path)
-    if args.quiet:
-        sys.stdout = open(os.devnull, "w")
-    random.seed(0)
-    np.random.seed(0)
-    torch.manual_seed(0)
+    with stamped(args.quiet):
+        try:
+            network_gui.init(args.ip, args.port)
+        except OSError as e:
+            print(f"network_gui disabled: {e}")
 
-    from sgs_tpu_torch.train.lgm_trainer import training_lgm
+        from sgs_tpu_torch.train.lgm_trainer import training_lgm
 
-    training_lgm(
-        dataset, opt, pipe, args.test_iterations, args.save_iterations,
-        args.checkpoint_iterations, args.start_checkpoint,
-        latent_size=args.latent_size, hidden_size=args.hidden_size,
-        gaussians_per_structure=args.gaussians_per_structure,
-        use_positional_embedding=args.use_positional_embedding,
-        downsample_init=args.downsample_init, device=args.device,
-    )
-    print("\nTraining complete.")
+        training_lgm(
+            dataset, opt, pipe, args.test_iterations, args.save_iterations,
+            args.checkpoint_iterations, args.start_checkpoint,
+            latent_size=args.latent_size, hidden_size=args.hidden_size,
+            gaussians_per_structure=args.gaussians_per_structure,
+            use_positional_embedding=args.use_positional_embedding,
+            downsample_init=args.downsample_init, device=args.device,
+        )
+        print("\nTraining complete.")
 
 
 if __name__ == "__main__":

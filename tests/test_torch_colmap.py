@@ -10,8 +10,8 @@ the toy COLMAP scene of `sgs_tpu.utils.toy_scene.make_colmap_dataset`
 - `Scene`: the counts, the shuffled order under one `random` seed, the
   init cloud (bit for bit) and pool (within 1e-6), and the `cameras.json`
   and `input.ply` bytes;
-- images the port cannot decode (JPEG, palette, 16-bit) raise an error
-  that names the file and the format; a gray image trains in both (its
+- images the port cannot decode (progressive JPEG, palette, 16-bit)
+  raise an error that names the file and the format; a gray image trains in both (its
   one-channel GT broadcasts in both losses), a gray-alpha one in neither;
 - the port's train CLI at `-r 2` raises the test PSNR of the toy scene of
   tests/test_train_e2e.py:106, and its render CLI at `-r 2` gives the JAX
@@ -242,7 +242,7 @@ def test_undecodable_images_raise(toy, tmp_path, kind, match):
 
     def write(path):
         if kind == "jpeg":
-            Image.fromarray(rgb).save(path, format="JPEG")
+            Image.fromarray(rgb).save(path, format="JPEG", progressive=True)
         elif kind == "palette":
             Image.fromarray(rgb).convert("P").save(path)
         else:

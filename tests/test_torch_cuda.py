@@ -1,10 +1,16 @@
-"""Kernels A-K on the card against their plain PyTorch versions.
+"""Kernels A-K on the card against their plain PyTorch versions, and the
+native JPEG decoder (host C++ built with nvcc) against PIL's digests of the
+committed cases and the plain decoder.
 
 CUDA kernels have no CPU mode, so these tests need an NVIDIA GPU with nvcc
 and skip without one. On the card (no JAX there, so no conftest):
 
     python -m pytest --noconftest -p no:cacheprovider -o addopts="" -m cuda tests/test_torch_cuda.py
 """
+
+import hashlib
+import json
+import os
 
 import numpy as np
 import pytest
@@ -282,3 +288,20 @@ def test_l2_read_rate_is_a_rate(dev):
     more = l2_rate.l2_read_rate(dev, mib=24, passes=20)
     assert more["ms"] > one["ms"]
     assert 3.35e12 < more["bytes_per_s"] < 1e14, more
+
+
+JPEG_CASES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "jpeg_cases")
+JPEG_DIGESTS = json.load(open(os.path.join(JPEG_CASES, "digests.json")))
+
+
+@pytest.mark.parametrize("name", sorted(JPEG_DIGESTS))
+def test_native_jpeg_equals_digest_and_plain(dev, name):
+    from sgs_tpu_torch.data import jpeg
+    from sgs_tpu_torch.ops.jpeg import read_jpeg_native
+
+    path = os.path.join(JPEG_CASES, name)
+    got = read_jpeg_native(path)
+    assert hashlib.sha256(got.tobytes()).hexdigest() == JPEG_DIGESTS[name]["sha256"]
+    assert list(got.shape) == JPEG_DIGESTS[name]["shape"]
+    if got.shape[0] * got.shape[1] < 64_000:
+        np.testing.assert_array_equal(got, jpeg.read_jpeg(path))

@@ -1,4 +1,4 @@
-"""The port imports nothing of JAX, flax, optax, PIL, tensorboard or
+"""The port imports nothing of JAX, flax, optax, PIL, matplotlib, tensorboard or
 sgs_tpu: with those blocked, every module of sgs_tpu_torch and the
 chip_smoke script still import (the card's machine has none of them)."""
 
@@ -11,7 +11,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "PIL", "sgs_tpu", "tensorboard")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "PIL", "sgs_tpu", "tensorboard", "matplotlib")
 
 
 class Block(importlib.abc.MetaPathFinder):

@@ -6,6 +6,8 @@ dB (tests/test_latent_model.py), rise by 3 dB from iteration 1, and the
 PLY, the checkpoint and cfg_args must be written (the checkpoint loads
 back and decodes to the PLY's positions)."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -35,7 +37,8 @@ def test_train_lgm_cli_fits_toy_scene(toy_scene, tmp_path, capsys):
     train_lgm_main(["-s", toy_scene, "-m", str(model), "--eval", "--device", "cpu",
                     "--iterations", "60", "--downsample_init", "2500",
                     "--test_iterations", "1", "60", "--checkpoint_iterations", "60"])
-    out = capsys.readouterr().out
+    # the CLI stamps every line as JAX's safe_state does; read the lines without it
+    out = re.sub(r" \[\d\d/\d\d \d\d:\d\d:\d\d\]\n", "\n", capsys.readouterr().out)
     assert "Number of structures at initialisation : 40" in out
     test_psnr = [float(ln.split("PSNR ")[1]) for ln in out.splitlines()
                  if "Evaluating test" in ln]
