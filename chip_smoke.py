@@ -171,10 +171,32 @@ Phases:
      sgs_tpu_torch.analyze_model` on the flagship printing the JAX CLI's
      lines, its PCA PLYs reloading. The launch counts are reset before and
      read after each run;
- 14. a `{"kernels": [...]}` line (A-D also with `readers_launches`, their
-     launches over phase 11, `tools_launches`, theirs over phase 13, and A
-     and B with `eval_launches`, theirs over phase 12), the device line,
-     and last the result line `{"ok": true, "device": {...}}`.
+ 14. multi-device training (`sgs_tpu_torch/parallel/`), on the flagship
+     test view 0 at 800x800 with the model of phase 5: (a) the view as 8
+     row bands on this card (`tile_shard.render_band` through
+     `hybrid.render_bands`), equal (112 px) and balanced
+     (`row_load_histogram`, `balanced_band_offsets`, the ownership cull and
+     compaction), each band composited by Kernel A and differentiated by
+     Kernel C (launches counted: once a band), stitched: the image within
+     3e-5 of the full Kernel A render, the parameter and tap gradients
+     within rtol 2e-3, atol 3e-6 of the full Kernel C step; each band's A
+     and C device ms, on the arguments the checked render gave them,
+     against the full frame's; (b) a one-rank NCCL group in
+     this process: one `make_dp_train_step` and one 1x1
+     `make_hybrid_train_step` (compacted) on the view against `train_step`
+     at tests/test_torch_train_step.py's bars (new parameters, Adam
+     moments, statistics, loss, nonfinite_grads), A-D once each a step;
+     (c) `torchrun --nproc_per_node=1 -m sgs_tpu_torch.train --parallel
+     dp` for 40 iterations from points3d.ply through one densify against
+     `--parallel none` with the same seed: the same losses.tsv rows (rtol
+     1e-4, the count exactly). With two cards or more (c) also runs dp and
+     hybrid on every card; with one, the script says that branch did not
+     run;
+ 15. a `{"kernels": [...]}` line (A-D also with `readers_launches`, their
+     launches over phase 11, `tools_launches`, theirs over phase 13,
+     `parallel_launches`, theirs over phase 14 (a) and (b), and A and B
+     with `eval_launches`, theirs over phase 12), the device line, and
+     last the result line `{"ok": true, "device": {...}}`.
 
 Any failed phase raises and the script exits nonzero. It needs the
 repository around it and a CUDA device; without either it fails before
@@ -220,6 +242,7 @@ from sgs_tpu_torch.models.latent import LatentGaussianModel
 from sgs_tpu_torch.models.vectorized import vectorized
 from sgs_tpu_torch.ops import build, exp_forward, flat_raster, gather, jpeg as jpeg_ops, ssim as ssim_ops
 from sgs_tpu_torch.ops.ssim import psnr
+from sgs_tpu_torch.parallel import data_parallel, hybrid, mesh as mesh_lib, tile_shard
 from sgs_tpu_torch.render.cli import main as render_main
 from sgs_tpu_torch.render.cli import render_sets
 from sgs_tpu_torch.render.pipeline import project_and_shade, render
@@ -405,6 +428,17 @@ JAX_ANALYZE_LINES = [
     "normalized: top-3 PCA explains 0.243",
     "Done.",
 ]
+# Phase 14 (parallel): 8 row bands of the 800x800 flagship view, held
+# to the full render at JAX's band bars (tests/test_tile_shard.py:83-95:
+# image atol 3e-5; gradients rtol 2e-3, atol 3e-6); the one-rank NCCL
+# steps to `train_step` at tests/test_torch_train_step.py's bars (rtol
+# 1e-4 plus 2e-4 of each field's largest magnitude; the loss rtol 1e-5);
+# the torchrun CLI's losses.tsv to `--parallel none`'s at rtol 1e-4.
+PARALLEL_DIR = ROOT / "build" / "smoke" / "parallel"
+PARALLEL_BANDS = 8
+BAND_ATOL, BAND_GRAD_RTOL, BAND_GRAD_ATOL = 3e-5, 2e-3, 3e-6
+STEP_RTOL, STEP_ATOL_SCALE = 1e-4, 2e-4
+PARALLEL_ITERS = 40
 STAMP = re.compile(r" \[\d\d/\d\d \d\d:\d\d:\d\d\]$")
 MEASURED = {}
 
@@ -1177,9 +1211,8 @@ def phase_timing(dev, errs: dict, launches: dict, views, step: dict) -> list:
     n = args[4].shape[0]
     m = args[2].shape[0]
     hw = args[5] * args[6]
-    # point_list, the 48-byte records, tile ranges and schedule, 20 bytes out per pixel
-    a_bytes = 4 * m + 4 * flat_raster.REC_WIDTH * n + 12 * args[0].shape[0] + 20 * hw
-    a_bound, a_by = bound_ms(a_bytes, flat_raster.OPS_PER_PAIR * float(n_contrib.sum()))
+    a_row = exp_bounds.kernel_a(args, n_contrib)
+    a_bound, a_by = a_row["bound_ms"], a_row["bound_by"]
 
     q, gt = first["q"], first["gt"]
     errs["B"] = max(errs["B"], compare_ssim(q, gt))
@@ -1349,9 +1382,8 @@ def phase_experiments(dev, errs: dict, old_alpha) -> list:
     # Kernel A on the same bins, for the comparison: its bound as in phase 7
     ka = sc["kernel_a"]
     _, _, n_contrib = flat_raster.rasterize_tiles(*ka)
-    a_bound = bound_ms(4 * ka[2].shape[0] + 4 * flat_raster.REC_WIDTH * ka[4].shape[0]
-                       + 12 * sc["num_tiles"] + 20 * ka[5] * ka[6],
-                       flat_raster.OPS_PER_PAIR * float(n_contrib.sum()))
+    a_row = exp_bounds.kernel_a(ka, n_contrib)
+    a_bound = (a_row["bound_ms"], a_row["bound_by"])
     say(f"[8 experiments] Kernel A on the 1080p bins: {exp_scene.fmt_ms(res_e[0]['ms'])}, bound {a_bound[0]:.4f} ms "
         f"({a_bound[1]}), {float(n_contrib.sum()):.0f} instance-pixel pairs below n_contrib")
     ms = {"E": res_e[1]["ms"], "F": next(x["ms"] for x in res_f if x.get("mode") == "alpha"),
@@ -2383,13 +2415,15 @@ def phase_tools_view(dev) -> dict:
                 raise AssertionError(f"view frame {i} is not the quantised Kernel A render")
             if i in (0, VIEW_FRAMES // 4):
                 _, kargs = raster_inputs(project_and_shade(cam, inputs), cam.image_width, cam.image_height)
+                a_bound = exp_bounds.kernel_a(kargs, flat_raster.rasterize_tiles(*kargs)[2])
                 a_ms.append((time_ms(lambda: flat_raster.rasterize_tiles(*kargs), 20), kargs[2].shape[0],
-                             int((kargs[1] - kargs[0]).max())))
+                             int((kargs[1] - kargs[0]).max()), a_bound))
     gif = read_gif_info(str(out_dir / "orbit.gif"))
     say(f"[13 tools] (d) view CLI: {VIEW_FRAMES} frames at {VIEW_SIZE}x{VIEW_SIZE} in {wall:.2f} s "
         f"(the GIF included), launches {launches}; every frame within {worst:.2e} of the plain render "
         f"(bar {VIEW_ATOL}); Kernel A device ms on frames 0 and {VIEW_FRAMES // 4}: "
-        + ", ".join(f"{t:.4f} ({n} instances, longest tile list {m})" for t, n, m in a_ms)
+        + ", ".join(f"{t:.4f} ({n} instances, longest tile list {m}; bound {b['bound_ms']:.4f} ms, "
+                    f"{b['bound_by']}, {b['P']:.0f} instance-pixel pairs)" for t, n, m, b in a_ms)
         + f"; orbit.gif {gif}")
     if launches != only(A=VIEW_FRAMES) or worst > VIEW_ATOL:
         raise AssertionError(f"view: launches {launches}, worst {worst}")
@@ -2505,6 +2539,239 @@ def phase_tools(dev) -> dict:
     return total
 
 
+def check_close(name: str, got, want, rtol: float, atol: float) -> float:
+    """got against want (same non-finite elements, the rest within rtol and
+    atol); returns the largest |err|."""
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)):
+        raise AssertionError(f"{name}: non-finite elements differ")
+    err = (got[fin] - want[fin]).abs()
+    if not bool((err <= rtol * want[fin].abs() + atol).all()):
+        raise AssertionError(f"{name}: max |err| {float(err.max())} over rtol {rtol}, atol {atol}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def phase_parallel_bands(dev, model, view) -> dict:
+    """(a) The flagship view as 8 row bands on one card, equal and balanced:
+    each band composited by Kernel A and differentiated by Kernel C, the
+    bands stitched and held to the full frame's image and gradients."""
+    cam, gt = view.camera, view.gt_image
+    bg = torch.zeros(3, device=dev)
+    w, h = cam.image_width, cam.image_height
+    with torch.no_grad():
+        full_img = render(cam, model.render_inputs(SH_DEGREE), bg)["render"]
+    want = step_grads(model, cam, gt, bg)
+    p = project_and_shade(cam, model.render_inputs(SH_DEGREE))
+    _, full_args, full_bargs, _, _ = step_kernel_inputs(model.render_inputs(SH_DEGREE), cam, gt, bg)
+    full_a = time_ms(lambda: flat_raster.rasterize_tiles(*full_args), 10)
+    full_c = time_ms(lambda: flat_raster.rasterize_tiles_backward(*full_bargs), 10)
+    dc_full = full_bargs[9]
+    hist = tile_shard.row_load_histogram(p["mean2d"], p["radius"], p["valid"], w, h).cpu().numpy()
+    layouts = {"equal": (*hybrid.equal_band_offsets(h, PARALLEL_BANDS), False),
+               "balanced": (*tile_shard.balanced_band_offsets(hist, PARALLEL_BANDS), True)}
+    total = only()
+    for name, (offsets, pad, own) in layouts.items():
+        leaves = {f: getattr(model, f).detach().requires_grad_(True) for f in PARAM_FIELDS}
+        tap = torch.zeros((model.capacity, 3), device=dev, requires_grad=True)
+        reset_counts()
+        rec, _, _ = tile_shard.splat_records(leaves, model.alive, cam, SH_DEGREE, tap)
+        img, auxes = hybrid.render_bands(rec, offsets, pad, w, h, bg, own=own)
+        loss = ssim_ops.training_loss(img, gt, 0.2)
+        grads = torch.autograd.grad(loss, [leaves[f] for f in PARAM_FIELDS] + [tap])
+        torch.cuda.synchronize()
+        launches = read_counts()
+        if launches != only(A=PARALLEL_BANDS, B=1, C=PARALLEL_BANDS, D=1):
+            raise AssertionError(f"(a) {name} bands: launches {launches}, expected A and C once a band")
+        total = {k: total[k] + launches[k] for k in total}
+        img_err = check_close(f"(a) {name} stitched image", img.detach(), full_img, 0.0, BAND_ATOL)
+        errs = {}
+        for f, g in zip(PARAM_FIELDS + ("tap",), grads):
+            g, wv = (g[:, :2], want[f][:, :2]) if f == "tap" else (g, want[f])
+            errs[f] = check_close(f"(a) {name} gradient {f}", g, wv, BAND_GRAD_RTOL, BAND_GRAD_ATOL)
+        # each band's Kernel A and C alone on the arguments its render gave
+        # them, C on the band's rows of the loss's cotangent
+        band_ms = []
+        for off, aux in zip(offsets, auxes):
+            args, bins = aux["args"], aux["bins"]
+            dc = torch.zeros((3, pad * TILE, w), device=dev)
+            rows = dc_full[:, int(off) * TILE:int(off) * TILE + pad * TILE]
+            dc[:, :rows.shape[1]] = rows
+            bargs = (*args, aux["t_final"], aux["n_contrib"], dc, bg, bins["perm"], bins["rank_start"],
+                     bins["order"])
+            band_ms.append((time_ms(lambda: flat_raster.rasterize_tiles(*args), 10),
+                            time_ms(lambda: flat_raster.rasterize_tiles_backward(*bargs), 10)))
+        worst = max(range(len(band_ms)), key=lambda i: band_ms[i][0] + band_ms[i][1])
+        say(f"[14 parallel] (a) {name} bands: offsets (tile rows) {[int(o) for o in offsets]}, {pad} tile rows "
+            f"each ({pad * TILE} px); launches {launches} (A and C once a band); instances per band "
+            f"{[a['n_instances'] for a in auxes]} (full frame {full_args[2].shape[0]}); stitched image within "
+            f"{img_err:.2e} of Kernel A's full render (bar {BAND_ATOL}); gradients max |err| "
+            + ", ".join(f"{f} {v:.2e}" for f, v in errs.items())
+            + f" (rtol {BAND_GRAD_RTOL}, atol {BAND_GRAD_ATOL}); device ms A / C per band "
+            + ", ".join(f"{a:.4f} / {c:.4f}" for a, c in band_ms)
+            + f"; worst band {worst}: A {band_ms[worst][0]:.4f}, C {band_ms[worst][1]:.4f} against the full "
+              f"frame's A {full_a:.4f}, C {full_c:.4f}")
+    return total
+
+
+def seeded_state(model, seed: int = 0) -> TrainState:
+    """The model with seeded Adam moments (step 40) and statistics, so a
+    step is not Adam's sign-like first one."""
+    rng = np.random.default_rng(seed)
+    dev = model.device
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    params = model.params()
+    adam = AdamState(mu={f: t(rng.normal(0, 1e-4, v.shape)) for f, v in params.items()},
+                     nu={f: t(rng.uniform(1e-9, 1e-7, v.shape)) for f, v in params.items()},
+                     step={f: 40 for f in params})
+    cap = model.capacity
+    stats = DensifyStats(xyz_gradient_accum=t(rng.uniform(0, 1e-3, (cap, 1))),
+                         denom=t(rng.integers(0, 20, (cap, 1))), max_radii2d=t(rng.uniform(0, 30, cap)))
+    return TrainState(model=model, adam=adam, stats=stats)
+
+
+def check_state(label: str, got: TrainState, gm: dict, want: TrainState, wm: dict) -> float:
+    """A parallel step's state and metrics against `train_step`'s at
+    tests/test_torch_train_step.py's bars; returns the worst |err| / scale."""
+    if abs(float(gm["loss"]) - float(wm["loss"])) > 1e-5 * abs(float(wm["loss"])):
+        raise AssertionError(f"{label}: loss {float(gm['loss'])} against {float(wm['loss'])}")
+    if int(gm["nonfinite_grads"]) != int(wm["nonfinite_grads"]):
+        raise AssertionError(f"{label}: nonfinite_grads {int(gm['nonfinite_grads'])} "
+                             f"against {int(wm['nonfinite_grads'])}")
+    pairs = [(f, getattr(got.model, f), getattr(want.model, f)) for f in PARAM_FIELDS]
+    pairs += [(f"mu {f}", got.adam.mu[f], want.adam.mu[f]) for f in PARAM_FIELDS]
+    pairs += [(f"nu {f}", got.adam.nu[f], want.adam.nu[f]) for f in PARAM_FIELDS]
+    pairs += [(k, getattr(got.stats, k), getattr(want.stats, k))
+              for k in ("xyz_gradient_accum", "denom", "max_radii2d")]
+    worst = 0.0
+    for name, g, wv in pairs:
+        scale = float(wv.abs().max())
+        err = check_close(f"{label} {name}", g, wv, STEP_RTOL, STEP_ATOL_SCALE * scale)
+        worst = max(worst, err / max(scale, 1e-30))
+    return worst
+
+
+def phase_parallel_nccl(dev, model, view) -> dict:
+    """(b) One `make_dp_train_step` and one 1x1 `make_hybrid_train_step` in a
+    one-rank NCCL group of this process, against `train_step` on the view."""
+    import torch.distributed as dist
+
+    cam, gt = view.camera, view.gt_image
+    bg = torch.zeros(3, device=dev)
+    rank_dev = mesh_lib.init_distributed("cuda")
+    try:
+        backend = dist.get_backend()
+        state = seeded_state(model)
+        lrs = make_lr_dict(OptimizationParams(), scene_extent(), 7000)
+        want, wm = train_step(state, cam, gt, bg, lrs, SH_DEGREE)
+        mesh = mesh_lib.make_mesh((1,), ("data",), "cuda")
+        cam_b, gt_b = data_parallel.shard_camera_batch(data_parallel.stack_cameras([cam]), gt[None], mesh)
+        total = only()
+        results = {}
+        hmesh = mesh_lib.make_mesh((1, 1), ("data", "gauss"), "cuda")
+        runs = (("dp", lambda: data_parallel.make_dp_train_step(mesh, SH_DEGREE)(state, cam_b, gt_b, bg, lrs)),
+                ("hybrid 1x1", lambda: hybrid.make_hybrid_train_step(hmesh, SH_DEGREE, cam.image_width,
+                                                                     cam.image_height, compact=True)(
+                    hybrid.place_hybrid_state(state, hmesh), cam_b, gt_b, bg, lrs)))
+        for name, run in runs:
+            reset_counts()
+            got, gm = run()
+            torch.cuda.synchronize()
+            launches = read_counts()
+            if launches != only(A=1, B=1, C=1, D=1):
+                raise AssertionError(f"(b) {name}: launches {launches}")
+            total = {k: total[k] + launches[k] for k in total}
+            results[name] = check_state(f"(b) {name}", got, gm, want, wm)
+        say(f"[14 parallel] (b) a one-rank {backend} group on {rank_dev}: "
+            + "; ".join(f"{k} step against train_step, worst |err| / field max {v:.2e}" for k, v in results.items())
+            + f" (rtol {STEP_RTOL}, atol {STEP_ATOL_SCALE} x max; loss {float(wm['loss']):.6f}, nonfinite_grads "
+              f"{int(wm['nonfinite_grads'])}); launches A-D once each a step")
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
+def train_cli_run(out_dir: Path, mode: str, nproc: int) -> tuple:
+    """The train CLI from points3d.ply: `--parallel none` as a plain
+    process, dp/hybrid under torchrun with `nproc` ranks. Returns
+    (losses.tsv rows, wall s)."""
+    argv = ["-s", FLAGSHIP_SCENE, "-m", out_dir, "--eval", "--iterations", PARALLEL_ITERS,
+            "--densify_from_iter", 20, "--densification_interval", 15, "--densify_until_iter", 39,
+            "--test_iterations", 20, PARALLEL_ITERS, "--save_iterations", PARALLEL_ITERS,
+            "--checkpoint_iterations", -1, "--parallel", mode]
+    launcher = [sys.executable]
+    if mode != "none":
+        launcher += ["-m", "torch.distributed.run", f"--nproc_per_node={nproc}", "--master_port",
+                     str(mesh_lib.free_port())]
+    cmd = launcher + ["-m", "sgs_tpu_torch.train"] + [str(a) for a in argv]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)} exited {res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+    rows = [r.split("\t") for r in (out_dir / "losses.tsv").read_text().strip().splitlines()[1:]]
+    return rows, wall
+
+
+def phase_parallel_cli(dev) -> None:
+    """(c) `torchrun --nproc_per_node=1 -m sgs_tpu_torch.train --parallel dp`
+    against `--parallel none` with the same seed: the same losses.tsv rows.
+    With two cards or more, dp and hybrid also run on every card."""
+    none_rows, none_wall = train_cli_run(PARALLEL_DIR / "none", "none", 1)
+    dp_rows, dp_wall = train_cli_run(PARALLEL_DIR / "dp1", "dp", 1)
+    if len(none_rows) != 2 or [r[0] for r in dp_rows] != [r[0] for r in none_rows]:
+        raise AssertionError(f"(c) rows {dp_rows} against {none_rows}")
+    worst = 0.0
+    for got, want in zip(dp_rows, none_rows):
+        if got[3] != want[3]:
+            raise AssertionError(f"(c) Gaussian count {got[3]} against {want[3]} at iteration {got[0]}")
+        for g, wv in zip(got[1:3], want[1:3]):
+            err = abs(float(g) - float(wv))
+            worst = max(worst, err / abs(float(wv)))
+            if err > STEP_RTOL * abs(float(wv)):
+                raise AssertionError(f"(c) dp row {got} against none {want}")
+    if not float(dp_rows[1][1]) < float(dp_rows[0][1]):
+        raise AssertionError(f"(c) the test L1 did not fall: {dp_rows}")
+    say(f"[14 parallel] (c) {PARALLEL_ITERS} iterations from points3d.ply through one densify: torchrun "
+        f"--nproc_per_node=1 --parallel dp rows {dp_rows} against --parallel none {none_rows}, worst relative "
+        f"difference {worst:.2e} (bar {STEP_RTOL}); walls {dp_wall:.2f} / {none_wall:.2f} s (scene load and "
+        f"process start included)")
+    n = torch.cuda.device_count()
+    if n < 2:
+        say(f"[14 parallel] (b), (c) with more than one rank: not run, this machine has {n} card "
+            "(NCCL puts one rank on a card); the many-rank paths are checked on the CPU with gloo")
+        return
+    for mode in ("dp", "hybrid"):
+        rows, wall = train_cli_run(PARALLEL_DIR / f"{mode}{n}", mode, n)
+        if len(rows) != 2 or not float(rows[1][1]) < float(rows[0][1]):
+            raise AssertionError(f"(c) {mode} over {n} ranks: rows {rows}")
+        say(f"[14 parallel] (c) torchrun --nproc_per_node={n} --parallel {mode}: rows {rows}, wall {wall:.2f} s")
+
+
+def phase_parallel(dev, model, view) -> dict:
+    """Phase 14: the band render on one card, the one-rank NCCL steps and
+    the CLI under torchrun; returns A-D's launches over (a) and (b)."""
+    t0 = time.perf_counter()
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    PARALLEL_DIR.mkdir(parents=True)
+    walls = {}
+    a = phase_parallel_bands(dev, model, view)
+    walls["a"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    b = phase_parallel_nccl(dev, model, view)
+    walls["b"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    phase_parallel_cli(dev)
+    walls["c"] = time.perf_counter() - t1
+    total = {k: a[k] + b[k] for k in a}
+    say(f"[14 parallel] phase wall {time.perf_counter() - t0:.2f} s ("
+        + ", ".join(f"({k}) {v:.2f}" for k, v in walls.items()) + f"); launches over (a)-(b) {total}")
+    return total
+
+
 def main(device: str = "cuda") -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2529,12 +2796,14 @@ def main(device: str = "cuda") -> int:
     readers = phase_readers(dev)
     evals = phase_eval(dev, views)
     tools = phase_tools(dev)
+    parallel = phase_parallel(dev, model, views[0])
     for entry, k in zip(kernels, "ABCD"):
         entry["readers_launches"] = readers[k]
         entry["tools_launches"] = tools[k]
+        entry["parallel_launches"] = parallel[k]
         if k in "AB":
             entry["eval_launches"] = evals["launches"][k]
-    say(f"[14 done] chip_smoke wall {time.perf_counter() - t_start:.2f} s")
+    say(f"[15 done] chip_smoke wall {time.perf_counter() - t_start:.2f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

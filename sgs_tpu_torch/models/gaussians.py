@@ -217,6 +217,14 @@ class DensifyStats:
             ),
         )
 
+    def merge(self, other: "DensifyStats") -> "DensifyStats":
+        """The statistics of two sets of views: sums added, radii maxed."""
+        return DensifyStats(
+            xyz_gradient_accum=self.xyz_gradient_accum + other.xyz_gradient_accum,
+            denom=self.denom + other.denom,
+            max_radii2d=torch.maximum(self.max_radii2d, other.max_radii2d),
+        )
+
 
 def from_jax_arrays(arrays: Dict[str, np.ndarray], max_sh_degree: int = 3,
                     device: "str | torch.device" = "cuda") -> GaussianModel:

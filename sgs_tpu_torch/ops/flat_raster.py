@@ -109,6 +109,9 @@ def rasterize_tiles(tile_start, tile_end, point_list, schedule, records,
     return color, t_final, n_contrib
 
 
+PLAIN_CHUNK_STEPS = 16  # steps of the plain walk between its checks for finished tiles
+
+
 def _longest_first(schedule: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """`schedule` stably re-sorted by `lengths`, longest first: itself when
     it already is longest first, as binning's is."""
@@ -116,61 +119,95 @@ def _longest_first(schedule: torch.Tensor, lengths: torch.Tensor) -> torch.Tenso
     return schedule[torch.argsort(lengths[schedule], descending=True, stable=True)]
 
 
+def _walk_steps(n: int, ws: dict, step_t: torch.Tensor, point_list, records) -> None:
+    """n steps of the plain walk over the working set `ws`, in place: each
+    tile composites entry `step_t` of its list, if its list has one."""
+    last_entry = point_list.shape[0] - 1
+    for _ in range(n):
+        in_list = (step_t < ws["cnt"])[:, None]
+        g = point_list[torch.clamp_max(ws["starts"] + step_t, last_entry)].long()
+        rec = records[g]
+        dx = rec[:, 4:5] - ws["px"]
+        dy = rec[:, 5:6] - ws["py"]
+        ca, cb, cc, op = rec[:, 0:1], rec[:, 1:2], rec[:, 2:3], rec[:, 3:4]
+        power = (-0.5 * ca * dx - cb * dy) * dx + (-0.5 * cc) * dy * dy
+        alpha = torch.clamp_max(op * torch.exp(power), ALPHA_MAX)
+        t_run = ws["trans"]
+        ok = (power <= 0.0) & (alpha >= ALPHA_MIN) & ~ws["done"] & in_list
+        test_t = t_run * (1.0 - alpha)
+        stop = ok & (test_t < TRANSMITTANCE_EPS)
+        inc = ok & ~stop
+        w = t_run * alpha
+        ws["col"].copy_(torch.where(inc[:, None, :], ws["col"] + rec[:, 6:9, None] * w[:, None, :], ws["col"]))
+        ws["last"].copy_(torch.where(inc, (step_t + 1).to(torch.int32), ws["last"]))
+        ws["trans"].copy_(torch.where(inc, test_t, t_run))
+        ws["done"] |= stop
+        step_t += 1
+
+
+@torch.no_grad()
 def rasterize_tiles_plain(tile_start, tile_end, point_list, schedule, records,
                           width: int, height: int):
     """The same function as the kernel, vectorised over tiles and pixels
     and sequential over each tile's list, with the kernel's arithmetic
-    op for op. Tiles are visited longest list first, so the tiles still
-    walking at step j are a prefix; the output does not depend on the
-    tile order."""
+    op for op. The walk steps a working set of tiles through their lists
+    PLAIN_CHUNK_STEPS entries at a time (a tile past the end of its list
+    changes nothing); between chunks the tiles whose lists have ended or
+    whose pixels are all done leave it, once they are an eighth of it (a
+    done pixel changes nothing more, so the output is the same bits). On
+    the card a working set that outlives a chunk has its chunk captured
+    once as a CUDA graph and replayed, so a step costs the device's time
+    and not the host's launches. The output does not depend on the tile
+    order."""
     dev = records.device
     tiles_x = -(-width // TILE)
     tiles_y = -(-height // TILE)
     num_tiles = tiles_x * tiles_y
     counts = tile_end - tile_start
     order = _longest_first(schedule, counts)
-    counts_sorted = counts[order].tolist()
-    starts = tile_start[order].long()
 
     lx = torch.arange(TILE * TILE, device=dev) % TILE
     ly = torch.arange(TILE * TILE, device=dev) // TILE
     px_i = (order % tiles_x)[:, None] * TILE + lx[None, :]
     py_i = (order // tiles_x)[:, None] * TILE + ly[None, :]
-    px, py = px_i.to(torch.float32), py_i.to(torch.float32)
 
+    # the final state of every tile (in `order`), and the working set: the
+    # tiles still walking, as positions `idx` into it, with their state
     trans = torch.ones((num_tiles, TILE * TILE), dtype=torch.float32, device=dev)
     col = torch.zeros((num_tiles, 3, TILE * TILE), dtype=torch.float32, device=dev)
     last = torch.zeros((num_tiles, TILE * TILE), dtype=torch.int32, device=dev)
     done = (px_i >= width) | (py_i >= height)
+    idx = torch.arange(num_tiles, device=dev)
+    ws = {"starts": tile_start[order].long(), "cnt": counts[order].long(),
+          "px": px_i.to(torch.float32), "py": py_i.to(torch.float32),
+          "trans": trans, "col": col, "last": last, "done": done}
+    step_t = torch.zeros((), dtype=torch.int64, device=dev)
 
-    live = num_tiles
-    step = 0
-    while live > 0:
-        while live > 0 and counts_sorted[live - 1] <= step:
-            live -= 1
-        if live == 0:
-            break
-        g = point_list[starts[:live] + step].long()
-        rec = records[g]
-        dx = rec[:, 4:5] - px[:live]
-        dy = rec[:, 5:6] - py[:live]
-        ca, cb, cc, op = rec[:, 0:1], rec[:, 1:2], rec[:, 2:3], rec[:, 3:4]
-        power = (-0.5 * ca * dx - cb * dy) * dx + (-0.5 * cc) * dy * dy
-        alpha = torch.clamp_max(op * torch.exp(power), ALPHA_MAX)
-        t_run = trans[:live]
-        ok = (power <= 0.0) & (alpha >= ALPHA_MIN) & ~done[:live]
-        test_t = t_run * (1.0 - alpha)
-        stop = ok & (test_t < TRANSMITTANCE_EPS)
-        inc = ok & ~stop
-        w = t_run * alpha
-        col[:live] = torch.where(inc[:, None, :], col[:live] + rec[:, 6:9, None] * w[:, None, :],
-                                 col[:live])
-        trans[:live] = torch.where(inc, test_t, t_run)
-        last[:live] = torch.where(inc, step + 1, last[:live])
-        done[:live] |= stop
-        step += 1
-        if step % 64 == 0 and bool(done[:live].all()):
-            break
+    def write_back():
+        if ws["trans"] is not trans:  # until the first prune the working set is the state itself
+            trans[idx], col[idx], last[idx], done[idx] = ws["trans"], ws["col"], ws["last"], ws["done"]
+
+    step, graph = 0, None
+    walking = num_tiles > 0 and int(counts.max()) > 0
+    while walking:
+        if graph is not None:
+            graph.replay()
+        else:
+            _walk_steps(PLAIN_CHUNK_STEPS, ws, step_t, point_list, records)
+        step += PLAIN_CHUNK_STEPS
+        keep = torch.nonzero(~(ws["done"].all(dim=1) | (ws["cnt"] <= step))).flatten()
+        walking = keep.shape[0] > 0
+        if 8 * keep.shape[0] < 7 * idx.shape[0]:
+            write_back()  # then keep the tiles still walking
+            idx = idx[keep]
+            ws = {k: v[keep] for k, v in ws.items()}
+            graph = None
+        elif graph is None and dev.type == "cuda":
+            # the working set outlived a chunk: capture its chunk for the next ones
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                _walk_steps(PLAIN_CHUNK_STEPS, ws, step_t, point_list, records)
+    write_back()
 
     def to_image(tiles: torch.Tensor, channels: int) -> torch.Tensor:
         full = torch.empty_like(tiles)

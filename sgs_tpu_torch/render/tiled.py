@@ -168,7 +168,8 @@ class RasterizeFunction(torch.autograd.Function):
 
     forward(mean2d, depth, conic, rgb, opacity, radius, valid, bg, width,
     height, aux) returns the (3, H, W) image color + t_final * bg and puts
-    n_instances, t_final, n_contrib and the bins into the dict `aux`.
+    n_instances, t_final, n_contrib, the bins and Kernel A's arguments
+    into the dict `aux`.
     backward returns gradients for mean2d, conic, rgb, opacity and bg
     (d bg = sum over pixels of t_final * dC) and None for depth, radius,
     valid and the static arguments."""
@@ -185,7 +186,7 @@ class RasterizeFunction(torch.autograd.Function):
         ctx.size = (width, height)
         ctx.bg_dtype = bg.dtype
         aux.update(n_instances=int(bins["point_list"].shape[0]), t_final=t_final,
-                   n_contrib=n_contrib, bins=bins)
+                   n_contrib=n_contrib, bins=bins, args=args)
         return image
 
     @staticmethod
@@ -209,7 +210,7 @@ def rasterize_tiled(mean2d, depth, conic, rgb, opacity, radius, valid, bg,
     through Kernel C.
 
     Returns ((3, H, W) image, aux) with aux = {n_instances, t_final,
-    n_contrib, bins}."""
+    n_contrib, bins, args (Kernel A's)}."""
     aux: dict = {}
     image = RasterizeFunction.apply(mean2d, depth, conic, rgb, opacity, radius, valid, bg,
                                     width, height, aux)

@@ -161,6 +161,20 @@ def gather_rows(vmem=None, dma=None, src: int = gather_ops.SRC,
             dma_gather_row(attr, starts)] + [identity_row(src, rec) for rec in gather_ops.WIDTHS]
 
 
+def kernel_a(args, n_contrib) -> dict:
+    """Kernel A on its arguments (`render/tiled.py::kernel_args`) and the
+    n_contrib it returned: the point list, the 48-byte records, the tile
+    ranges and schedule in, 20 bytes a pixel out; OPS_PER_PAIR operations
+    for every instance-pixel pair below n_contrib."""
+    from sgs_tpu_torch.ops import flat_raster
+
+    nbytes = (4 * args[2].shape[0] + 4 * flat_raster.REC_WIDTH * args[4].shape[0]
+              + 12 * args[0].shape[0] + 20 * args[5] * args[6])
+    pairs = float(n_contrib.sum())
+    return fixed("Kernel A", "sgs_tpu/ops/pallas/flat_raster.py:492", nbytes,
+                 flat_raster.OPS_PER_PAIR * pairs, P=pairs)
+
+
 def rows(width: int = 1920, height: int = 1080, n: int = 100_000) -> list:
     c = scene_counts(exp_scene.build_scene(width, height, n, 0, "cpu"))
     fwd = [forward("scripts/exp_fwd.py:210", "forward variant (Kernel E)", c, mode)

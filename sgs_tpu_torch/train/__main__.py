@@ -16,8 +16,18 @@ cpu runs the plain PyTorch versions of the kernels instead.
 them) and seeds `random`, `numpy` and `torch` with 0; stdout is put back
 when the call returns. The trainer serves the network viewer once per
 iteration, but this CLI starts no listener, as `train.py` starts none
-(--ip/--port are accepted and unused). Not ported: --parallel dp|hybrid
-and tensorboard.
+(--ip/--port are accepted and unused). Not ported: tensorboard.
+
+Multi-device training runs one process a rank under torchrun, which sets
+the rank, world size and rendezvous:
+
+    torchrun --nproc_per_node=N -m sgs_tpu_torch.train -s <scene> -m <out> --parallel dp
+    torchrun --nproc_per_node=N -m sgs_tpu_torch.train -s <scene> -m <out> --parallel hybrid \
+        [--parallel_mesh DxG] [--hy_balance]
+
+(NCCL on the card, one card a rank; with --device cpu, gloo). Rank 0
+writes the outputs and prints; the other ranks run as with --quiet. Give
+-m: without it each rank would name its own output directory.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import uuid
 from argparse import ArgumentParser, Namespace
 
 import torch
+import torch.distributed as dist
 
 from sgs_tpu_torch.utils.config import (
     ModelParams,
@@ -69,11 +80,13 @@ def main(argv=None) -> None:
     pipe = extract_dataclass(PipelineParams, args)
     if not dataset.model_path:
         dataset.model_path = os.path.join("./output/", str(uuid.uuid4())[0:10])
-    print("Optimizing " + dataset.model_path)
-    os.makedirs(dataset.model_path, exist_ok=True)
-    with open(os.path.join(dataset.model_path, "opt_args"), "w") as f:
-        f.write(str(Namespace(**{k: v for k, v in vars(opt).items() if not k.startswith("_")})))
-    with stamped(args.quiet):
+    rank0 = int(os.environ.get("RANK", "0")) == 0
+    if rank0:
+        print("Optimizing " + dataset.model_path)
+        os.makedirs(dataset.model_path, exist_ok=True)
+        with open(os.path.join(dataset.model_path, "opt_args"), "w") as f:
+            f.write(str(Namespace(**{k: v for k, v in vars(opt).items() if not k.startswith("_")})))
+    with stamped(args.quiet or not rank0):
         if args.detect_anomaly:
             torch.autograd.set_detect_anomaly(True)
 
@@ -83,6 +96,7 @@ def main(argv=None) -> None:
             training(dataset, opt, pipe, args.test_iterations, args.save_iterations,
                      args.checkpoint_iterations, args.start_checkpoint, device=args.device)
 
+        owns_group = not dist.is_initialized()
         if args.profile_dir:
             from torch.profiler import ProfilerActivity, profile
 
@@ -95,6 +109,8 @@ def main(argv=None) -> None:
             prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
         else:
             run()
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
         print("\nTraining complete.")
 
 

@@ -305,3 +305,59 @@ def test_native_jpeg_equals_digest_and_plain(dev, name):
     assert list(got.shape) == JPEG_DIGESTS[name]["shape"]
     if got.shape[0] * got.shape[1] < 64_000:
         np.testing.assert_array_equal(got, jpeg.read_jpeg(path))
+
+
+@pytest.mark.parametrize("layout", ["equal", "balanced"])
+def test_band_stitch_matches_full_frame(dev, layout):
+    """The band path on one card (chip_smoke phase 14 (a) at a small size):
+    a seeded 3,000-Gaussian scene at 200x150, its 4 row bands composited
+    by Kernel A (once a band) and differentiated by Kernel C (once a band),
+    stitched; the image within 3e-5 of the full frame's Kernel A render,
+    the parameter and tap gradients within rtol 2e-3, atol 3e-6 of the
+    full frame's Kernel C step (JAX's band bars)."""
+    import math
+
+    from sgs_tpu_torch.core.camera import Camera
+    from sgs_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianModel
+    from sgs_tpu_torch.parallel import hybrid, tile_shard
+    from sgs_tpu_torch.render.pipeline import project_and_shade, render
+
+    rng = np.random.default_rng(4)
+    n, w, h, n_bands = 3000, 200, 150, 4
+    pts = np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(-1, 1, n) ** 3, rng.uniform(2.5, 6, n)], -1)
+    model = GaussianModel.from_pcd(pts.astype(np.float32), rng.uniform(size=(n, 3)).astype(np.float32), 1,
+                                   device=dev)
+    model.scaling[:n] = torch.as_tensor(rng.uniform(-4.0, -2.0, (n, 3)), dtype=torch.float32, device=dev)
+    model.opacity[:n] = torch.as_tensor(rng.uniform(-1.0, 3.0, (n, 1)), dtype=torch.float32, device=dev)
+    fovx = math.radians(60)
+    cam = Camera.from_Rt(np.eye(3), np.zeros(3), fovx, 2 * math.atan(math.tan(fovx / 2) * h / w), w, h,
+                         device=dev)
+    target = torch.as_tensor(rng.uniform(size=(3, h, w)), dtype=torch.float32, device=dev)
+    bg = torch.tensor([0.2, 0.5, 0.7], device=dev)
+    if layout == "equal":
+        offsets, pad = hybrid.equal_band_offsets(h, n_bands)
+    else:
+        p = project_and_shade(cam, model.render_inputs(1))
+        hist = tile_shard.row_load_histogram(p["mean2d"], p["radius"], p["valid"], w, h)
+        offsets, pad = tile_shard.balanced_band_offsets(hist.cpu().numpy(), n_bands)
+    out = {}
+    for name in ("full", "bands"):
+        leaves = {f: getattr(model, f).detach().requires_grad_(True) for f in PARAM_FIELDS}
+        tap = torch.zeros((model.capacity, 3), device=dev, requires_grad=True)
+        a0, c0 = flat_raster.KERNEL.launches, flat_raster.BACKWARD.launches
+        if name == "full":
+            img = render(cam, model.with_params(leaves).render_inputs(1), bg, vspace_tap=tap)["render"]
+        else:
+            rec, _, _ = tile_shard.splat_records(leaves, model.alive, cam, 1, tap)
+            img, _ = hybrid.render_bands(rec, offsets, pad, w, h, bg, own=layout == "balanced")
+        loss = torch.mean(torch.abs(img - target))
+        grads = torch.autograd.grad(loss, [leaves[f] for f in PARAM_FIELDS] + [tap])
+        torch.cuda.synchronize()
+        k = 1 if name == "full" else n_bands
+        assert (flat_raster.KERNEL.launches - a0, flat_raster.BACKWARD.launches - c0) == (k, k)
+        out[name] = (img.detach(), grads)
+    assert float((out["bands"][0] - out["full"][0]).abs().max()) <= 3e-5
+    for f, g, want in zip(PARAM_FIELDS + ("tap",), out["bands"][1], out["full"][1]):
+        if f == "tap":
+            g, want = g[:, :2], want[:, :2]
+        torch.testing.assert_close(g, want, rtol=2e-3, atol=3e-6, msg=f)

@@ -73,6 +73,36 @@ def test_view_order_matches_jax(toy_scene, tmp_path, monkeypatch):
     assert len(set(seen_port[:12])) == 12, "each pass over the stack sees every view once"
 
 
+def test_view_order_matches_jax_reference_rasterizer(toy_scene, tmp_path, monkeypatch):
+    """With `--rasterizer reference` the JAX trainer sizes no instance
+    bucket, so it makes no `sample` calls: the port makes none either and
+    pops the same views."""
+    seen_jax, seen_port = [], []
+
+    def jax_step(state, camera, gt_image, *args, **kwargs):
+        seen_jax.append(np.asarray(gt_image).tobytes())
+        return state, {"loss": 0.0, "l1": 0.0, "overflow": 0, "nonfinite_grads": 0}
+
+    def port_step(state, camera, gt_image, *args, **kwargs):
+        seen_port.append(gt_image.numpy().tobytes())
+        return state, {"loss": torch.tensor(0.0), "l1": torch.tensor(0.0),
+                       "nonfinite_grads": torch.tensor(0)}
+
+    monkeypatch.setattr(jtrainer, "train_step", jax_step)
+    monkeypatch.setattr(trainer, "train_step", port_step)
+
+    jdata = jconfig.ModelParams(source_path=toy_scene, model_path=str(tmp_path / "jax"), eval=True)
+    random.seed(0)
+    jtrainer.training(jdata, _opt(jconfig), jconfig.PipelineParams(no_tqdm=True, rasterizer="reference"),
+                      [], [], [], scene=JaxScene(jdata))
+    data = config.ModelParams(source_path=toy_scene, model_path=str(tmp_path / "port"), eval=True)
+    random.seed(0)
+    trainer.training(data, _opt(config), config.PipelineParams(no_tqdm=True, rasterizer="reference"),
+                     [], [], [], scene=Scene(data, device="cpu"), device="cpu")
+    assert len(seen_port) == ITERS
+    assert seen_port == seen_jax
+
+
 def test_prints_no_tensorboard_line(toy_scene, tmp_path, monkeypatch, capsys):
     """The port never imports tensorboard: it prints the JAX trainer's
     line for a missing tensorboard once, where training starts, and
