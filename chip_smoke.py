@@ -144,10 +144,12 @@ Phases:
      snapshot: A once per view, B never, within 1e-4 dB of (a)'s oracle
      numbers. The launch counts are reset before and read after each run;
  13. the JPEG decoder and the tools: (a) every committed case of
-     data/jpeg_cases through the native decoder (`ops/jpeg.py`, host C++
-     built with nvcc) equal to PIL's digest in digests.json, and to the
-     plain decoder under 64,000 pixels; native ms per Mpx on the 800x800
-     views and the 4946x3286 frame, with the host's CPU model; (b) the
+     data/jpeg_cases, baseline and progressive (the block-smoothed ones
+     counted, at least one required), through the native decoder
+     (`ops/jpeg.py`, host C++ built with nvcc) equal to PIL's digest in
+     digests.json, and to the plain decoder under 64,000 pixels; native
+     ms per Mpx on the 800x800 views and the 4946x3286 frame, baseline
+     and progressive, with the host's CPU model; (b) the
      JPEG COLMAP flagship (data/colmap_flagship800_jpg, 56 views, llffhold
      8): its scene load beside phase 11's PNG copy, the render and metrics
      CLIs held per view to the JAX package's numbers on it (`JAX_JPG_*`,
@@ -252,7 +254,7 @@ from sgs_tpu_torch import view as view_cli
 from sgs_tpu_torch.analyze_model import main as analyze_main
 from sgs_tpu_torch.tools import (colmap_scene, exp_bounds, exp_dma_gather, exp_fwd, exp_fwd2,
                                  exp_gather_layout, exp_scene, exp_transposed, exp_vmem_gather,
-                                 gather_inputs, l2_rate, oracle_times, scan_ablation)
+                                 gather_inputs, jpeg_times, l2_rate, oracle_times, scan_ablation)
 # the bounds' peak rates (H100 SXM, NVIDIA's data sheet) are defined there
 from sgs_tpu_torch.tools.exp_bounds import bound_ms
 from sgs_tpu_torch.tools.ssim_times import time_ms
@@ -393,6 +395,7 @@ TOOLS_DIR = ROOT / "build" / "smoke" / "tools"
 JPEG_CASES = ROOT / "data" / "jpeg_cases"
 JPEG_SCENE = ROOT / "data" / "colmap_flagship800_jpg"
 JPEG_BIG = "flagship_4946x3286_q95_420.jpg"
+JPEG_BIG_PROGRESSIVE = "flagship_4946x3286_q95_420_progressive.jpg"
 PLAIN_JPEG_MAX_PX = 64_000  # the plain Python Huffman loop is held to the native one below this
 # The JAX package's render.py and metrics.py on the JPEG copy's test split
 # (PIL decodes the JPEGs), copied from
@@ -2146,10 +2149,12 @@ def host_cpu() -> str:
 
 def phase_tools_jpeg() -> None:
     """(a) Every committed case through the native decoder against PIL's
-    digest, and against the plain decoder under PLAIN_JPEG_MAX_PX; the
-    native ms per Mpx on the 800x800 views and the 4946x3286 frame."""
+    digest, and against the plain decoder under PLAIN_JPEG_MAX_PX (the
+    progressive cases among them, those libjpeg smooths counted); the
+    native ms per Mpx on the 800x800 views and the 4946x3286 frame,
+    baseline and progressive, by `tools/jpeg_times.py`."""
     digests = json.loads((JPEG_CASES / "digests.json").read_text())
-    plain_checked = 0
+    plain_checked, progressive, smoothed = 0, 0, 0
     for name, want in sorted(digests.items()):
         path = str(JPEG_CASES / name)
         got = jpeg_ops.read_jpeg_native(path)
@@ -2159,25 +2164,26 @@ def phase_tools_jpeg() -> None:
             if not np.array_equal(got, jpeg_plain.read_jpeg(path)):
                 raise AssertionError(f"native JPEG decode of {name} differs from the plain decoder")
             plain_checked += 1
-    views = sorted(str(p) for p in (JPEG_SCENE / "images").glob("*.jpg"))
-    t0 = time.perf_counter()
-    for p in views:
-        jpeg_ops.read_jpeg_native(p)
-    views_s = time.perf_counter() - t0
-    big = str(JPEG_CASES / JPEG_BIG)
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        jpeg_ops.read_jpeg_native(big)
-        times.append(time.perf_counter() - t0)
-    big_mpx = 4946 * 3286 / 1e6
-    MEASURED["jpeg_ms_per_mpx"] = 1e3 * views_s / (len(views) * 0.64)
-    say(f"[13 tools] (a) JPEG: {len(digests)} committed cases decoded natively equal to PIL's digests, "
-        f"{plain_checked} (under {PLAIN_JPEG_MAX_PX} px) also equal to the plain decoder; native "
-        f"decode {MEASURED['jpeg_ms_per_mpx']:.2f} ms/Mpx over the {len(views)} 800x800 views "
-        f"({1e3 * views_s / len(views):.2f} ms a view), 4946x3286 frame "
-        f"{1e3 * float(np.median(times)):.1f} ms ({1e3 * float(np.median(times)) / big_mpx:.2f} ms/Mpx, "
-        f"median of 3); host CPU {host_cpu()}")
+        frame = jpeg_plain.parse_jpeg(Path(path).read_bytes(), name)
+        progressive += frame.progressive
+        smoothed += jpeg_plain.smoothing_wanted(frame, jpeg_plain.coefficient_bits(frame))
+    if not smoothed:
+        raise AssertionError("no committed JPEG case exercises block smoothing")
+    times = jpeg_times.main(ROOT)
+    frames = times["frames_ms_per_mpx"]
+    if sorted(frames) != sorted((JPEG_BIG, JPEG_BIG_PROGRESSIVE)) or not times["views"]:
+        raise AssertionError(f"JPEG times: {times['views']} views, frames {sorted(frames)}")
+    MEASURED["jpeg_ms_per_mpx"] = times["views_ms_per_mpx"]
+    MEASURED["jpeg_big_ms_per_mpx"] = {"baseline": frames[JPEG_BIG], "progressive": frames[JPEG_BIG_PROGRESSIVE]}
+    big = {k: v * jpeg_times.BIG_MPX for k, v in MEASURED["jpeg_big_ms_per_mpx"].items()}
+    say(f"[13 tools] (a) JPEG: {len(digests)} committed cases ({progressive} progressive, {smoothed} of them "
+        f"smoothed) decoded natively equal to PIL's digests, {plain_checked} (under {PLAIN_JPEG_MAX_PX} px) "
+        f"also equal to the plain decoder; native decode {MEASURED['jpeg_ms_per_mpx']:.2f} ms/Mpx over the "
+        f"{times['views']} 800x800 views ({MEASURED['jpeg_ms_per_mpx'] * jpeg_times.VIEW_MPX:.2f} ms a view), "
+        f"4946x3286 frame baseline {big['baseline']:.1f} ms ({frames[JPEG_BIG]:.2f} ms/Mpx), progressive "
+        f"{big['progressive']:.1f} ms ({frames[JPEG_BIG_PROGRESSIVE]:.2f} ms/Mpx), medians of 3 "
+        f"(`tools/jpeg_times.py`); "
+        f"host CPU {host_cpu()}")
 
 
 def scene_load_s(src: Path, dev) -> tuple:

@@ -16,7 +16,9 @@ cpu runs the plain PyTorch versions of the kernels instead.
 them) and seeds `random`, `numpy` and `torch` with 0; stdout is put back
 when the call returns. The trainer serves the network viewer once per
 iteration, but this CLI starts no listener, as `train.py` starts none
-(--ip/--port are accepted and unused). Not ported: tensorboard.
+(--ip/--port are accepted and unused). --seed (the port's own, 0 by
+default as in JAX) seeds the trainer's camera order and its generator
+(split noise, random backgrounds). Not ported: tensorboard.
 
 Multi-device training runs one process a rank under torchrun, which sets
 the rank, world size and rendezvous:
@@ -68,6 +70,8 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="write a torch.profiler trace of the training run to this directory")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the camera order and of densify's and the backgrounds' draws")
     return parser
 
 
@@ -94,7 +98,8 @@ def main(argv=None) -> None:
 
         def run() -> None:
             training(dataset, opt, pipe, args.test_iterations, args.save_iterations,
-                     args.checkpoint_iterations, args.start_checkpoint, device=args.device)
+                     args.checkpoint_iterations, args.start_checkpoint, seed=args.seed,
+                     device=args.device)
 
         owns_group = not dist.is_initialized()
         if args.profile_dir:

@@ -25,7 +25,10 @@ The JAX trainer's instance buckets (`compute_buckets`, the overflow
 regrow and the warm-up shrink re-bucket) are not ported: the port sizes
 every array from the real counts (`render/pipeline.py`), so nothing can
 overflow and nothing needs re-sizing, and the bucket lines are not
-printed. Neither is the network viewer.
+printed. Each iteration first serves the network viewer
+(`viewer/network_gui.serve`, a no-op unless a listener was started),
+rendering the decoded model with the pipeline's rasterizer at the
+client's scaling modifier, clamped to [0, 1].
 """
 
 from __future__ import annotations

@@ -7,10 +7,16 @@
   intervals, optimised Huffman tables and a 16-bit quantisation table
   (SOF1); `encode_baseline` below writes what PIL cannot (true 4:1:1,
   4:4:0, 4x2 luma, chroma sampled finer than luma, one scan per
-  component, a 2x2 grayscale, an Adobe RGB file); the 4946x3286 frame (a
-  MipNeRF360 full-resolution size) is a flagship view enlarged by PIL and
-  saved at quality 95, 4:2:0. `digests.json` holds, for every case, the
-  sha256 and shape of `np.asarray(PIL.Image.open(case))`.
+  component, a 2x2 grayscale, an Adobe RGB file). Progressive cases: PIL's
+  own (`progressive=True`) at 4:4:4, 4:2:2, 4:2:0 and gray with restart
+  intervals, and `encode_progressive`'s for what PIL cannot write (a DC
+  scan per component, uneven AC bands, point transforms up to 3, one
+  end-of-band run over most blocks, refinements in another order, and
+  incomplete scripts that libjpeg smooths), and two files whose scan data
+  ends early (`cut_scan`). The 4946x3286 frame (a MipNeRF360
+  full-resolution size) is a flagship view enlarged by PIL and saved at
+  quality 95, 4:2:0, baseline and progressive. `digests.json` holds, for
+  every case, the sha256 and shape of `np.asarray(PIL.Image.open(case))`.
 - `data/colmap_flagship800_jpg/`: the 56 views of data/flagship800,
   composited on black as the Blender reader composites them, saved by PIL
   at quality 95, 4:2:0, with the COLMAP copy's `sparse/0`
@@ -24,6 +30,7 @@ from __future__ import annotations
 import hashlib
 import io
 import json
+import re
 import os
 import shutil
 import sys
@@ -114,12 +121,10 @@ def _segment(marker, body):
     return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + body
 
 
-def encode_baseline(image, sampling, quality_scale=1.0, restart=0, interleaved=True, adobe_rgb=False,
-                    qt16=False, ids=(1, 2, 3)):
-    """A baseline JPEG (SOF0, or SOF1 with a 16-bit table) with the given
-    sampling factors [(h, v), ...]: 1 or 3 components, Annex K Huffman
-    tables, a float DCT. The decoder under test is held to PIL's decode of
-    it, so the encoder needs no accuracy of its own."""
+def _quantised(image, sampling, quality_scale, adobe_rgb, qt16):
+    """The components' quantised DCT blocks, (alloc_h, alloc_w, 64) ints in
+    natural order (whole MCUs, edges replicated), the two quantisation
+    tables and the image size."""
     img = np.asarray(image, np.float64)
     if img.ndim == 2:
         planes = [img]
@@ -133,7 +138,7 @@ def encode_baseline(image, sampling, quality_scale=1.0, restart=0, interleaved=T
     H, W = img.shape[:2]
     hmax, vmax = max(h for h, _ in sampling), max(v for _, v in sampling)
     mcux, mcuy = -(-W // (8 * hmax)), -(-H // (8 * vmax))
-    qts = [np.maximum(1, np.round(np.array(q) * quality_scale)).astype(int) for q in (_LUM_Q, _CHR_Q)]
+    qts = [np.clip(np.round(np.array(q) * quality_scale), 1, 255).astype(int) for q in (_LUM_Q, _CHR_Q)]
     if qt16:
         qts[1] = qts[1] * 4 + 200  # over 255: a 16-bit table, so SOF1
     n = np.arange(8)
@@ -152,8 +157,11 @@ def encode_baseline(image, sampling, quality_scale=1.0, restart=0, interleaved=T
         coef = dct @ b @ dct.T
         q = qts[0 if ci == 0 else 1].reshape(8, 8)
         blocks.append(np.round(coef / q).astype(int).reshape(ah, aw, 64))
-    nc = len(planes)
-    tabs = [0 if ci == 0 else 1 for ci in range(nc)]
+    return blocks, qts, H, W
+
+
+def _frame_header(qts, tabs, H, W, sampling, ids, sof, adobe_rgb=False, qt16=False):
+    """SOI, JFIF or Adobe, DQT and the SOF segment."""
     out = bytearray(b"\xff\xd8")
     if adobe_rgb:
         out += _segment(0xEE, b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 0]))
@@ -165,10 +173,25 @@ def encode_baseline(image, sampling, quality_scale=1.0, restart=0, interleaved=T
             out += _segment(0xDB, bytes([0x10 | t]) + b"".join(int(x).to_bytes(2, "big") for x in zz))
         else:
             out += _segment(0xDB, bytes([t]) + bytes(int(x) for x in zz))
-    sof = bytes([8]) + H.to_bytes(2, "big") + W.to_bytes(2, "big") + bytes([nc])
-    for ci in range(nc):
-        sof += bytes([ids[ci], (sampling[ci][0] << 4) | sampling[ci][1], tabs[ci]])
-    out += _segment(0xC1 if qt16 else 0xC0, sof)
+    body = bytes([8]) + H.to_bytes(2, "big") + W.to_bytes(2, "big") + bytes([len(tabs)])
+    for ci in range(len(tabs)):
+        body += bytes([ids[ci], (sampling[ci][0] << 4) | sampling[ci][1], tabs[ci]])
+    out += _segment(sof, body)
+    return out
+
+
+def encode_baseline(image, sampling, quality_scale=1.0, restart=0, interleaved=True, adobe_rgb=False,
+                    qt16=False, ids=(1, 2, 3)):
+    """A baseline JPEG (SOF0, or SOF1 with a 16-bit table) with the given
+    sampling factors [(h, v), ...]: 1 or 3 components, Annex K Huffman
+    tables, a float DCT. The decoder under test is held to PIL's decode of
+    it, so the encoder needs no accuracy of its own."""
+    blocks, qts, H, W = _quantised(image, sampling, quality_scale, adobe_rgb, qt16)
+    hmax, vmax = max(h for h, _ in sampling), max(v for _, v in sampling)
+    mcux, mcuy = -(-W // (8 * hmax)), -(-H // (8 * vmax))
+    nc = len(blocks)
+    tabs = [0 if ci == 0 else 1 for ci in range(nc)]
+    out = _frame_header(qts, tabs, H, W, sampling, ids, 0xC1 if qt16 else 0xC0, adobe_rgb, qt16)
     for t in sorted(set(tabs)):
         out += _segment(0xC4, bytes([t]) + bytes(_DC_BITS[t]) + bytes(_DC_VALS[t]))
         out += _segment(0xC4, bytes([0x10 | t]) + bytes(_AC_BITS[t]) + _AC_VALS[t])
@@ -225,6 +248,264 @@ def encode_baseline(image, sampling, quality_scale=1.0, restart=0, interleaved=T
         out += bits.out
     out += b"\xff\xd9"
     return bytes(out)
+
+
+def optimal_table(freq):
+    """(bits, values) of libjpeg's jpeg_gen_optimal_table for symbol counts
+    {symbol: count}: Huffman code lengths with a reserved all-ones code,
+    limited to 16 bits."""
+    f = [0] * 257
+    for sym, n in freq.items():
+        f[sym] = n
+    f[256] = 1
+    size, others = [0] * 257, [-1] * 257
+    while True:
+        live = [i for i in range(257) if f[i]]
+        if len(live) < 2:
+            break
+        c1 = min(live, key=lambda i: (f[i], -i))
+        c2 = min((i for i in live if i != c1), key=lambda i: (f[i], -i))
+        f[c1] += f[c2]
+        f[c2] = 0
+        for c in (c1, c2):
+            size[c] += 1
+            while others[c] >= 0:
+                c = others[c]
+                size[c] += 1
+        c = c1
+        while others[c] >= 0:
+            c = others[c]
+        others[c] = c2
+    bits = [0] * 33
+    for i in range(257):
+        if size[i]:
+            bits[size[i]] += 1
+    for i in range(32, 16, -1):
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1  # the pseudo-symbol 256
+    values = [sym for n in range(1, 33) for sym in range(256) if size[sym] == n]
+    return bits[1:17], values
+
+
+def _scan_tokens(blocks, sampling, comps, ss, se, ah, al, H, W, restart):
+    """One progressive scan as jcphuff.c codes it: a list of ("sym", table
+    class, component, symbol), ("bits", value, n) and ("rst",) tokens."""
+    hmax, vmax = max(h for h, _ in sampling), max(v for _, v in sampling)
+    mcux, mcuy = -(-W // (8 * hmax)), -(-H // (8 * vmax))
+    if len(comps) == 1:
+        c = comps[0]
+        h, v = sampling[c]
+        cw, ch = -(-W * h // hmax), -(-H * v // vmax)
+        units = [[(c, by, bx)] for by in range(-(-ch // 8)) for bx in range(-(-cw // 8))]
+    else:
+        units = [[(c, my * sampling[c][1] + by, mx * sampling[c][0] + bx)
+                  for c in comps for by in range(sampling[c][1]) for bx in range(sampling[c][0])]
+                 for my in range(mcuy) for mx in range(mcux)]
+    out = []
+    state = {"eobrun": 0, "be": [], "comp": comps[0]}
+
+    def emit_eobrun():
+        if state["eobrun"]:
+            n = state["eobrun"].bit_length() - 1
+            out.append(("sym", 1, state["comp"], n << 4))
+            if n:
+                out.append(("bits", state["eobrun"], n))
+            state["eobrun"] = 0
+            out.extend(("bits", b, 1) for b in state["be"])
+            state["be"] = []
+
+    pred = {c: 0 for c in comps}
+    for u, unit in enumerate(units):
+        if restart and u and u % restart == 0:
+            emit_eobrun()
+            out.append(("rst",))
+            pred = {c: 0 for c in comps}
+        for c, by, bx in unit:
+            zz = [int(x) for x in blocks[c][by, bx][_ZIGZAG]]
+            if ss == 0 and ah == 0:  # DC first: the point-transformed difference
+                t = zz[0] >> al
+                d, pred[c] = t - pred[c], t
+                n, val = _category(d)
+                out.append(("sym", 0, c, n))
+                if n:
+                    out.append(("bits", val, n))
+            elif ss == 0:  # DC refine: the next bit
+                out.append(("bits", (zz[0] >> al) & 1, 1))
+            elif ah == 0:  # AC first
+                r = 0
+                for k in range(ss, se + 1):
+                    t = abs(zz[k]) >> al
+                    if t == 0:
+                        r += 1
+                        continue
+                    emit_eobrun()
+                    while r > 15:
+                        out.append(("sym", 1, c, 0xF0))
+                        r -= 16
+                    n = t.bit_length()
+                    out.append(("sym", 1, c, (r << 4) | n))
+                    out.append(("bits", t if zz[k] > 0 else ~t & ((1 << n) - 1), n))
+                    r = 0
+                if r:
+                    state["eobrun"] += 1
+                    if state["eobrun"] == 0x7FFF:
+                        emit_eobrun()
+            else:  # AC refine: newly nonzero coefficients, correction bits
+                absv = {k: abs(zz[k]) >> al for k in range(ss, se + 1)}
+                eob = max([k for k in absv if absv[k] == 1], default=0)
+                r, br = 0, []
+                for k in range(ss, se + 1):
+                    t = absv[k]
+                    if t == 0:
+                        r += 1
+                        continue
+                    while r > 15 and k <= eob:
+                        emit_eobrun()
+                        out.append(("sym", 1, c, 0xF0))
+                        r -= 16
+                        out.extend(("bits", b, 1) for b in br)
+                        br = []
+                    if t > 1:
+                        br.append(t & 1)
+                        continue
+                    emit_eobrun()
+                    out.append(("sym", 1, c, (r << 4) | 1))
+                    out.append(("bits", 0 if zz[k] < 0 else 1, 1))
+                    out.extend(("bits", b, 1) for b in br)
+                    br = []
+                    r = 0
+                if r > 0 or br:
+                    state["eobrun"] += 1
+                    state["be"] += br
+                    if state["eobrun"] == 0x7FFF or len(state["be"]) > 1000 - 64 + 1:
+                        emit_eobrun()
+    emit_eobrun()
+    return out
+
+
+def encode_progressive(image, sampling, script, quality_scale=1.0, restart=0, blocks=None):
+    """A progressive JPEG (SOF2) of the image, or of given quantised
+    `blocks` (with `image` then giving only the size), with the scan
+    script [(components, Ss, Se, Ah, Al), ...] and, before each scan, the
+    optimal Huffman tables of that scan (DC table 0, AC table 0 for the
+    first component and 1 for the others). The script may be any PIL
+    cannot write: a DC scan per component, uneven bands, Al up to 13,
+    refinements in any order, scans left out."""
+    if blocks is None:
+        blocks, qts, H, W = _quantised(image, sampling, quality_scale, False, False)
+    else:
+        qts = [np.ones(64, int), np.ones(64, int)]
+        H, W = np.asarray(image).shape[:2]
+    nc = len(blocks)
+    tabs = [0 if ci == 0 else 1 for ci in range(nc)]
+    ids = (1, 2, 3)
+    out = _frame_header(qts, tabs, H, W, sampling, ids, 0xC2)
+    if restart:
+        out += _segment(0xDD, restart.to_bytes(2, "big"))
+    for comps, ss, se, ah, al in script:
+        tokens = _scan_tokens(blocks, sampling, comps, ss, se, ah, al, H, W, restart)
+        freq = {}
+        for t in tokens:
+            if t[0] == "sym":
+                key = (t[1], tabs[t[2]] if t[1] else 0)
+                freq.setdefault(key, {}).setdefault(t[3], 0)
+                freq[key][t[3]] += 1
+        codes = {}
+        for (cls, tid), f in sorted(freq.items()):
+            bits, values = optimal_table(f)
+            out += _segment(0xC4, bytes([(cls << 4) | tid]) + bytes(bits) + bytes(values))
+            codes[(cls, tid)] = _codes(bits, values)
+        hdr = bytes([len(comps)])
+        for ci in comps:
+            hdr += bytes([ids[ci], tabs[ci] if ss else 0])
+        out += _segment(0xDA, hdr + bytes([ss, se, (ah << 4) | al]))
+        bits, rst = _Bits(), 0
+        for t in tokens:
+            if t[0] == "sym":
+                bits.put(*codes[(t[1], tabs[t[2]] if t[1] else 0)][t[3]])
+            elif t[0] == "bits":
+                bits.put(t[1] & ((1 << t[2]) - 1), t[2])
+            else:
+                bits.flush()
+                out += bits.out + bytes([0xFF, 0xD0 + rst])
+                rst = (rst + 1) % 8
+                bits = _Bits()
+        bits.flush()
+        out += bits.out
+    out += b"\xff\xd9"
+    return bytes(out)
+
+
+def simple_script(nc, al=1):
+    """libjpeg's jpeg_simple_progression (what PIL writes with
+    progressive=True), its first point transforms raised by al - 1 and one
+    more refinement scan of each kind per step."""
+    if nc == 1:
+        script = [([0], 0, 0, 0, al), ([0], 1, 5, 0, al + 1), ([0], 6, 63, 0, al + 1), ([0], 1, 63, al + 1, al)]
+        for a in range(al, 0, -1):
+            script += [([0], 0, 0, a, a - 1), ([0], 1, 63, a, a - 1)]
+        return script
+    script = [([0, 1, 2], 0, 0, 0, al), ([0], 1, 5, 0, al + 1), ([2], 1, 63, 0, al), ([1], 1, 63, 0, al),
+              ([0], 6, 63, 0, al + 1), ([0], 1, 63, al + 1, al)]
+    for a in range(al, 0, -1):
+        script += [([0, 1, 2], 0, 0, a, a - 1), ([2], 1, 63, a, a - 1), ([1], 1, 63, a, a - 1),
+                   ([0], 1, 63, a, a - 1)]
+    return script
+
+
+def random_script(rng, nc, max_al=3, complete=True):
+    """A seeded legal progression: per component a DC first scan (the
+    components together or one scan each) and its refinements, the AC
+    coefficients in 1-4 bands of uneven width, each band's first scan at
+    a point transform up to max_al and its refinements; scans in a random
+    order that keeps each coefficient's scans in sequence and every AC
+    scan after its component's first DC scan. With complete=False each
+    chain may stop before its last refinement (a file to smooth)."""
+    chains = []  # lists of scans that must stay in order
+    dc_al = int(rng.integers(0, max_al + 1))
+    dc_stop = 0 if complete else int(rng.integers(0, dc_al + 1))
+    groups = [list(range(nc))] if nc > 1 and rng.random() < 0.7 else [[c] for c in range(nc)]
+    dc_first = []
+    for g in groups:
+        chain = [(g, 0, 0, 0, dc_al)] + [(g, 0, 0, a, a - 1) for a in range(dc_al, dc_stop, -1)]
+        dc_first.append(chain[0])
+        chains.append(chain)
+    for c in range(nc):
+        cuts = sorted(rng.choice(np.arange(2, 64), int(rng.integers(0, 4)), replace=False).tolist())
+        edges = [1] + cuts + [64]
+        for lo, hi in zip(edges[:-1], edges[1:]):
+            al = int(rng.integers(0, max_al + 1))
+            stop = 0 if complete else int(rng.integers(0, al + 1))
+            chains.append([([c], lo, hi - 1, 0, al)] + [([c], lo, hi - 1, a, a - 1) for a in range(al, stop, -1)])
+    script, heads = [], [0] * len(chains)
+    done_dc = set()
+    while any(h < len(ch) for h, ch in zip(heads, chains)):
+        ready = [i for i, ch in enumerate(chains) if heads[i] < len(ch)
+                 and (ch[heads[i]][1] == 0 or ch[heads[i]][0][0] in done_dc)]
+        i = ready[int(rng.integers(0, len(ready)))]
+        scan = chains[i][heads[i]]
+        heads[i] += 1
+        script.append(scan)
+        if scan[1] == 0:
+            done_dc.update(scan[0])
+    if not complete and all(h == len(ch) for h, ch in zip(heads, chains)) and rng.random() < 0.5:
+        # also leave out whole scans at the end, keeping every component's DC
+        keep = len(script) - int(rng.integers(0, max(1, len(script) - len(dc_first))))
+        script = script[:max(keep, len(dc_first))]
+        for first in dc_first:
+            if first not in script:
+                script.insert(0, first)
+    return script
 
 
 def sample_image(h, w, seed, gray=False):
@@ -284,18 +565,108 @@ def small_cases():
     return cases
 
 
-def big_frame():
-    """A flagship view enlarged to 4946x3286 by PIL and saved at quality 95, 4:2:0."""
+def big_image():
+    """A flagship view enlarged to 4946x3286 by PIL."""
     src = Image.open(os.path.join(ROOT, "data", "flagship800", "train", "r_3.png")).convert("RGB")
     w, h = BIG_SIZE
     crop = src.crop((0, (800 - 800 * h // w) // 2, 800, (800 - 800 * h // w) // 2 + 800 * h // w))
-    return pil_bytes(np.asarray(crop.resize((w, h), Image.BICUBIC)), quality=95, subsampling=2)
+    return np.asarray(crop.resize((w, h), Image.BICUBIC))
+
+
+def big_frame(progressive=False):
+    """The enlarged view saved by PIL at quality 95, 4:2:0."""
+    return pil_bytes(big_image(), quality=95, subsampling=2, progressive=progressive)
+
+
+def keep_scans(data, n):
+    """The file with only its first n scans (EOI after the n-th scan's data)."""
+    i = [m.start() for m in re.finditer(b"\xff\xda", data)][n - 1]
+    begin = i + 2 + ((data[i + 2] << 8) | data[i + 3])
+    end = re.compile(rb"\xff+[^\x00\xd0-\xd7\xff]").search(data, begin).start()
+    return data[:end] + b"\xff\xd9"
+
+
+def cut_scan(data, scan, keep):
+    """The file with scan `scan`'s entropy-coded data cut to its first
+    `keep` bytes (the markers after it kept): a scan whose data ends early."""
+    starts = [m.start() for m in re.finditer(b"\xff\xda", data)]
+    i = starts[scan]
+    begin = i + 2 + ((data[i + 2] << 8) | data[i + 3])
+    end = re.compile(rb"\xff+[^\x00\xd0-\xd7\xff]").search(data, begin).start()
+    cut = begin + keep
+    while data[cut - 1] == 0xFF:
+        cut -= 1
+    assert cut < end
+    return data[:cut] + data[end:]
+
+
+def progressive_cases():
+    """{file name: JPEG bytes} of the small progressive cases."""
+    rgb3 = [(1, 1)] * 3
+    s420 = [(2, 2), (1, 1), (1, 1)]
+    uneven = [([0, 1, 2], 0, 0, 0, 1), ([0], 1, 2, 0, 2), ([0], 3, 20, 0, 3), ([0], 21, 63, 0, 1),
+              ([1], 1, 9, 0, 0), ([1], 10, 63, 0, 2), ([2], 1, 63, 0, 1), ([0], 3, 20, 3, 2), ([0], 1, 2, 2, 1),
+              ([0], 3, 20, 2, 1), ([0, 1, 2], 0, 0, 1, 0), ([1], 10, 63, 2, 1), ([0], 21, 63, 1, 0),
+              ([2], 1, 63, 1, 0), ([0], 1, 2, 1, 0), ([1], 10, 63, 1, 0), ([0], 3, 20, 1, 0)]
+    separate_dc = [([0], 0, 0, 0, 2), ([2], 0, 0, 0, 0), ([1], 0, 0, 0, 1), ([0], 1, 63, 0, 0), ([1], 1, 63, 0, 0),
+                   ([2], 1, 63, 0, 0), ([0], 0, 0, 2, 1), ([1], 0, 0, 1, 0), ([0], 0, 0, 1, 0)]
+    # refinements before the chroma's first AC scans, chroma refined before luma
+    reordered = [([0, 1, 2], 0, 0, 0, 3), ([0], 1, 63, 0, 3), ([0, 1, 2], 0, 0, 3, 2), ([0], 1, 63, 3, 2),
+                 ([2], 1, 63, 0, 2), ([0, 1, 2], 0, 0, 2, 1), ([2], 1, 63, 2, 1), ([1], 1, 63, 0, 1),
+                 ([2], 1, 63, 1, 0), ([1], 1, 63, 1, 0), ([0], 1, 63, 2, 1), ([0, 1, 2], 0, 0, 1, 0),
+                 ([0], 1, 63, 1, 0)]
+    # one end-of-band run over most of a flat image's blocks
+    flat = np.full((120, 200, 3), 90, np.uint8)
+    flat[40:60, 70:90] = (200, 30, 60)
+    # incomplete scripts: smoothing estimates the low AC coefficients
+    dc_only = [([0, 1, 2], 0, 0, 0, 1)]
+    partial = [([0, 1, 2], 0, 0, 0, 2), ([0], 1, 5, 0, 2), ([2], 1, 63, 0, 1), ([1], 1, 63, 0, 1),
+               ([0, 1, 2], 0, 0, 2, 1), ([0], 6, 63, 0, 2), ([0], 1, 5, 2, 1)]
+    pil_prog = simple_script(3)
+    cases = {
+        "pil_prog_444_q75_rstblocks2_37x23.jpg": pil_bytes(sample_image(23, 37, 21), quality=75, subsampling=0,
+                                                           progressive=True, restart_marker_blocks=2),
+        "pil_prog_422_q90_rstrows1_61x45.jpg": pil_bytes(sample_image(45, 61, 22), quality=90, subsampling=1,
+                                                         progressive=True, restart_marker_rows=1),
+        "pil_prog_420_q95_101x77.jpg": pil_bytes(sample_image(77, 101, 23), quality=95, subsampling=2,
+                                                 progressive=True),
+        "pil_prog_420_q60_rstblocks5_250x131.jpg": pil_bytes(sample_image(131, 250, 24), quality=60, subsampling=2,
+                                                             progressive=True, restart_marker_blocks=5),
+        "pil_prog_gray_q85_rstrows2_33x17.jpg": pil_bytes(sample_image(17, 33, 25, gray=True), quality=85,
+                                                          progressive=True, restart_marker_rows=2),
+        "enc_prog_separate_dc_420_45x38.jpg": encode_progressive(sample_image(38, 45, 26), s420, separate_dc,
+                                                                 restart=3),
+        "enc_prog_uneven_bands_444_40x29.jpg": encode_progressive(sample_image(29, 40, 27), rgb3, uneven),
+        "enc_prog_al3_reordered_422_53x35.jpg": encode_progressive(sample_image(35, 53, 28),
+                                                                   [(2, 1), (1, 1), (1, 1)], reordered),
+        "enc_prog_eobrun_420_200x120.jpg": encode_progressive(flat, s420, pil_prog),
+        "enc_prog_dc_only_smooth_420_43x40.jpg": encode_progressive(sample_image(40, 43, 29), s420, dc_only),
+        "enc_prog_partial_smooth_420_rst4_70x55.jpg": encode_progressive(sample_image(55, 70, 30), s420, partial,
+                                                                         restart=4),
+        "enc_prog_partial_smooth_y11_c22_26x22.jpg": encode_progressive(
+            sample_image(22, 26, 31), [(1, 1), (2, 2), (2, 2)], partial),
+        "enc_prog_partial_smooth_gray_16x50.jpg": encode_progressive(
+            sample_image(50, 16, 32, gray=True), [(2, 2)],
+            [([0], 0, 0, 0, 1), ([0], 1, 2, 0, 1), ([0], 3, 63, 0, 2), ([0], 1, 2, 1, 0)]),
+    }
+    # a scan whose data ends early: the last of an incomplete file (rows
+    # past the one where it ran out smoothed by the earlier coef_bits), and
+    # a middle scan with refinements after it (zero-filled coefficients far
+    # out of range: the IDCT saturates)
+    full = pil_bytes(sample_image(48, 64, 33), quality=80, subsampling=2, progressive=True)
+    two_scans = full[:[m.start() for m in re.finditer(b"\xff\xc4|\xff\xda", full)][5]] + b"\xff\xd9"
+    cases["pil_prog_420_cut_last_scan_64x48.jpg"] = cut_scan(two_scans, 1, 60)
+    cases["pil_prog_gray_cut_mid_scan_64x48.jpg"] = cut_scan(
+        pil_bytes(sample_image(48, 64, 34, gray=True), quality=80, progressive=True), 2, 66)
+    return cases
 
 
 def write_cases():
     os.makedirs(CASES, exist_ok=True)
     files = dict(small_cases())
+    files.update(progressive_cases())
     files[f"flagship_{BIG_SIZE[0]}x{BIG_SIZE[1]}_q95_420.jpg"] = big_frame()
+    files[f"flagship_{BIG_SIZE[0]}x{BIG_SIZE[1]}_q95_420_progressive.jpg"] = big_frame(progressive=True)
     digests = {}
     for name, data in sorted(files.items()):
         path = os.path.join(CASES, name)

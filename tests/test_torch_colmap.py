@@ -10,8 +10,10 @@ the toy COLMAP scene of `sgs_tpu.utils.toy_scene.make_colmap_dataset`
 - `Scene`: the counts, the shuffled order under one `random` seed, the
   init cloud (bit for bit) and pool (within 1e-6), and the `cameras.json`
   and `input.ply` bytes;
-- images the port cannot decode (progressive JPEG, palette, 16-bit)
-  raise an error that names the file and the format; a gray image trains in both (its
+- images the port cannot decode (CMYK JPEG, palette, 16-bit) raise an
+  error that names the file and the format; a progressive JPEG, complete
+  or with its last scans left out (block smoothing), loads with the GT of
+  JAX's `load_cam` bit for bit; a gray image trains in both (its
   one-channel GT broadcasts in both losses), a gray-alpha one in neither;
 - the port's train CLI at `-r 2` raises the test PSNR of the toy scene of
   tests/test_train_e2e.py:106, and its render CLI at `-r 2` gives the JAX
@@ -31,6 +33,7 @@ import torch
 from PIL import Image
 
 import render as jax_render_cli
+from jpeg_fixtures import keep_scans, pil_bytes, sample_image
 from sgs_tpu.data import colmap as jax_colmap
 from sgs_tpu.data import readers as jax_readers
 from sgs_tpu.data.camera_utils import load_cam as jax_load_cam
@@ -242,7 +245,7 @@ def test_undecodable_images_raise(toy, tmp_path, kind, match):
 
     def write(path):
         if kind == "jpeg":
-            Image.fromarray(rgb).save(path, format="JPEG", progressive=True)
+            Image.fromarray(rgb).convert("CMYK").save(path, format="JPEG")
         elif kind == "palette":
             Image.fromarray(rgb).convert("P").save(path)
         else:
@@ -252,6 +255,27 @@ def test_undecodable_images_raise(toy, tmp_path, kind, match):
     with pytest.raises(ValueError, match=match) as err:
         readers.read_colmap_scene(src, None, True)
     assert path in str(err.value)
+
+
+@pytest.mark.parametrize("scans", [None, 3])
+def test_progressive_jpeg_loads_as_in_jax(toy, tmp_path, scans):
+    """A progressive JPEG in the scene (all its scans, or the first three
+    only: libjpeg smooths the blocks) gives JAX's GT at -r 1 and -r 2."""
+    rgb = sample_image(32, 32, 5)
+
+    def write(path):
+        data = pil_bytes(rgb, quality=90, subsampling=2, progressive=True)
+        with open(path, "wb") as f:
+            f.write(keep_scans(data, scans) if scans else data)
+
+    src, _ = _one_image_scene(toy, tmp_path / "p", write)
+    want = jax_readers.read_colmap_scene(src, None, True).test_cameras[0]
+    got = readers.read_colmap_scene(src, None, True, device="cpu").test_cameras[0]
+    assert got.image_name == want.image_name == "img_000"
+    for resolution in (1, 2):
+        jcam, cam = jax_load_cam(resolution, 0, want, 1.0), load_cam(resolution, 0, got, 1.0, device="cpu")
+        assert cam.gt_image.shape == (3, 32 // resolution, 32 // resolution)
+        np.testing.assert_array_equal(cam.gt_image.numpy(), jcam.gt_image)
 
 
 def test_gray_trains_in_both_gray_alpha_in_neither(toy, tmp_path):
