@@ -194,10 +194,18 @@ Phases:
      1e-4, the count exactly). With two cards or more (c) also runs dp and
      hybrid on every card; with one, the script says that branch did not
      run;
- 15. a `{"kernels": [...]}` line (A-D also with `readers_launches`, their
+ 15. the tiled rasterizer without tight culling (`--no-tight_culling`,
+     rect binning) on flagship test view 0 with phase 5's model: (a) the
+     view rendered with both binnings, the rect image within 3e-5 of the
+     tight one, each binning's instance count and A's and C's device ms on
+     its arguments; (b) 10 steps of the train CLI with --no-tight_culling
+     from phase 5's checkpoint, A-D once a step, the snapshot's fields
+     beside phase 5's;
+ 16. a `{"kernels": [...]}` line (A-D also with `readers_launches`, their
      launches over phase 11, `tools_launches`, theirs over phase 13,
-     `parallel_launches`, theirs over phase 14 (a) and (b), and A and B
-     with `eval_launches`, theirs over phase 12), the device line, and
+     `parallel_launches`, theirs over phase 14 (a) and (b),
+     `rect_launches`, theirs over phase 15, and A and B with
+     `eval_launches`, theirs over phase 12), the device line, and
      last the result line `{"ok": true, "device": {...}}`.
 
 Any failed phase raises and the script exits nonzero. It needs the
@@ -442,6 +450,8 @@ PARALLEL_BANDS = 8
 BAND_ATOL, BAND_GRAD_RTOL, BAND_GRAD_ATOL = 3e-5, 2e-3, 3e-6
 STEP_RTOL, STEP_ATOL_SCALE = 1e-4, 2e-4
 PARALLEL_ITERS = 40
+RECT_DIR = ROOT / "build" / "smoke" / "rect"
+RECT_IMAGE_ATOL = 3e-5
 STAMP = re.compile(r" \[\d\d/\d\d \d\d:\d\d:\d\d\]$")
 MEASURED = {}
 
@@ -528,10 +538,11 @@ def random_raster_scene(dev, n=2000, width=250, height=190, seed=0):
                 valid=valid)
 
 
-def raster_inputs(sc: dict, width: int, height: int):
-    """Bin a scene as the render path does; returns (bins, Kernel A's args)."""
+def raster_inputs(sc: dict, width: int, height: int, tight: bool = True):
+    """Bin a scene as the render path does (tightly, or each Gaussian's
+    whole rect); returns (bins, Kernel A's args)."""
     bins = bin_gaussians(sc["mean2d"], sc["conic"], sc["opacity"], sc["depth"], sc["radius"],
-                         sc["valid"], width, height)
+                         sc["valid"], width, height, tight)
     return bins, kernel_args(bins, sc["mean2d"], sc["conic"], sc["opacity"], sc["rgb"], width, height)
 
 
@@ -1040,11 +1051,11 @@ def check_grads(got: dict, want: dict) -> dict:
     return worst
 
 
-def step_kernel_inputs(inputs, cam, gt, bg):
+def step_kernel_inputs(inputs, cam, gt, bg, tight: bool = True):
     """Kernels A-D's arguments in a training step on one view: (projection
     and shading, A's args, C's args, the image, the loss's cotangent for D)."""
     p = project_and_shade(cam, inputs)
-    bins, args = raster_inputs(p, cam.image_width, cam.image_height)
+    bins, args = raster_inputs(p, cam.image_width, cam.image_height, tight)
     color, t_final, n_contrib = flat_raster.rasterize_tiles(*args)
     image = (color + t_final[None] * bg[:, None, None]).requires_grad_(True)
     (dc,) = torch.autograd.grad(ssim_ops.training_loss(image, gt, 0.2), image)
@@ -2778,6 +2789,65 @@ def phase_parallel(dev, model, view) -> dict:
     return total
 
 
+def phase_rect(dev, model, view) -> dict:
+    """Phase 15: the tiled rasterizer without tight culling
+    (`--no-tight_culling`, rect binning) on flagship test view 0 with
+    phase 5's model: (a) the view rendered with both binnings, the rect
+    image held to the tight one within RECT_IMAGE_ATOL, each binning's
+    instances and A's and C's device ms on its arguments; (b) 10 steps of
+    the train CLI with --no-tight_culling from phase 5's checkpoint: A-D
+    once a step, the snapshot's fields beside phase 5's. Returns A-D's
+    launches over (a) and (b)."""
+    t0 = time.perf_counter()
+    cam, gt = view.camera, view.gt_image
+    bg = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        inputs = model.render_inputs(SH_DEGREE)
+        reset_counts()
+        tight = render(cam, inputs, bg, mode="tiled")
+        rect = render(cam, inputs, bg, mode="rect")
+        torch.cuda.synchronize()
+        a_launches = read_counts()
+    if a_launches != only(A=2):
+        raise AssertionError(f"(a) launches {a_launches}, expected A twice")
+    err = float((rect["render"] - tight["render"]).abs().max())
+    if not err <= RECT_IMAGE_ATOL:
+        raise AssertionError(f"(a) rect-binned image off the tight one by {err:.3e} (bar {RECT_IMAGE_ATOL})")
+    ms = {}
+    for name, is_tight in (("tight", True), ("rect", False)):
+        _, args, bargs, _, _ = step_kernel_inputs(inputs, cam, gt, bg, is_tight)
+        ms[name] = {"A": time_ms(lambda: flat_raster.rasterize_tiles(*args), 10),
+                    "C": time_ms(lambda: flat_raster.rasterize_tiles_backward(*bargs), 10)}
+    say(f"[15 rect] (a) test view 0: rect image against tight max |err| {err:.3e} (bar {RECT_IMAGE_ATOL}); "
+        f"instances tight {tight['n_instances']}, rect {rect['n_instances']} "
+        f"(x{rect['n_instances'] / tight['n_instances']:.3f}); device ms A tight {ms['tight']['A']:.4f} / rect "
+        f"{ms['rect']['A']:.4f}, C tight {ms['tight']['C']:.4f} / rect {ms['rect']['C']:.4f}")
+    steps = TRAIN_TO - TRAIN_FROM
+    argv = ["-s", FLAGSHIP_SCENE, "-m", RECT_DIR, "--eval", "--start_checkpoint",
+            TRAIN_DIR / "flagship_29990.npz", "--iterations", TRAIN_TO, "--test_iterations", -1,
+            "--checkpoint_iterations", -1, "--no-tight_culling", "--device", dev.type]
+    reset_counts()
+    t1 = time.perf_counter()
+    run_cli(train_main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    b_launches = read_counts()
+    if b_launches != only(A=steps, B=steps, C=steps, D=steps):
+        raise AssertionError(f"(b) training launches {b_launches}, expected {steps} of each kernel")
+    snaps = [load_gaussian_ply(str(d / "point_cloud" / f"iteration_{TRAIN_TO}" / "point_cloud.ply"), SH_DEGREE)
+             for d in (RECT_DIR, TRAIN_DIR)]
+    if snaps[0]["xyz"].shape != snaps[1]["xyz"].shape or not np.isfinite(snaps[0]["xyz"]).all():
+        raise AssertionError(f"(b) snapshot of {snaps[0]['xyz'].shape[0]} Gaussians against "
+                             f"{snaps[1]['xyz'].shape[0]}")
+    diffs = {f: float(np.abs(snaps[0][f] - snaps[1][f]).max() / max(np.abs(snaps[1][f]).max(), 1e-30))
+             for f in PARAM_FIELDS}
+    say(f"[15 rect] (b) {steps} steps with --no-tight_culling from phase 5's checkpoint: launches {b_launches}; "
+        "snapshot against phase 5's (tight), max |diff| / field max: "
+        + ", ".join(f"{f} {v:.2e}" for f, v in diffs.items()) + f"; trainer call {wall:.2f} s; "
+        f"phase wall {time.perf_counter() - t0:.2f} s")
+    return {k: a_launches[k] + b_launches[k] for k in a_launches}
+
+
 def main(device: str = "cuda") -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2803,13 +2873,15 @@ def main(device: str = "cuda") -> int:
     evals = phase_eval(dev, views)
     tools = phase_tools(dev)
     parallel = phase_parallel(dev, model, views[0])
+    rect = phase_rect(dev, model, views[0])
     for entry, k in zip(kernels, "ABCD"):
         entry["readers_launches"] = readers[k]
         entry["tools_launches"] = tools[k]
         entry["parallel_launches"] = parallel[k]
+        entry["rect_launches"] = rect[k]
         if k in "AB":
             entry["eval_launches"] = evals["launches"][k]
-    say(f"[15 done] chip_smoke wall {time.perf_counter() - t_start:.2f} s")
+    say(f"[16 done] chip_smoke wall {time.perf_counter() - t_start:.2f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,8 @@ directory's snapshot (--iteration then only names the output), and
 lines carry `utils/general.safe_state`'s time stamp (--quiet silences
 them), and stdout is put back when the call returns.
 `--rasterizer reference` renders with the O(N*P) oracle in place of
-binning and Kernel A.
+binning and Kernel A; `--no-tight_culling` bins each Gaussian's whole rect
+(the same pixels from more instances).
 """
 
 from __future__ import annotations
@@ -74,7 +75,7 @@ def render_sets(dataset: ModelParams, iteration: int, pipe: PipelineParams, skip
                 device: "str | torch.device" = "cuda") -> int:
     """Render a model's splits, as `render.py::render_sets`; returns the
     iteration it labelled them with."""
-    check_rasterizer(pipe)
+    mode = check_rasterizer(pipe)
     if not dataset.source_path:
         raise ValueError("no scene: pass -s or keep cfg_args in the model dir")
     dev = resolve_device(device)
@@ -85,7 +86,7 @@ def render_sets(dataset: ModelParams, iteration: int, pipe: PipelineParams, skip
                                ("test", scene.test_cameras, skip_test)):
         if not skip:
             render_set(Path(dataset.model_path) / split / f"ours_{scene.loaded_iter}", views,
-                       scene.pool, dataset.sh_degree, background, pipe.rasterizer)
+                       scene.pool, dataset.sh_degree, background, mode)
     return scene.loaded_iter
 
 

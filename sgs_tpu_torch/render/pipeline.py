@@ -1,7 +1,8 @@
 """Public render(). Port of `render()` in `sgs_tpu/render/pipeline.py`:
-mode="tiled" (binning with tight culling and Kernel A) or mode="reference"
-(the O(N*P) oracle, `render/reference.py`), with `scaling_modifier` and the
-`cov3d_precomp` / `colors_precomp` alternatives.
+mode="tiled" (binning with tight culling and Kernel A), mode="rect" (the
+same with the full 3-sigma rect binning, JAX's `--no-tight_culling`) or
+mode="reference" (the O(N*P) oracle, `render/reference.py`), with
+`scaling_modifier` and the `cov3d_precomp` / `colors_precomp` alternatives.
 
 Returned dict keys match the reference renderer: render (3,H,W) f32,
 viewspace_points (the screen-space tap), visibility_filter (N,) bool,
@@ -22,7 +23,7 @@ from sgs_tpu_torch.models.gaussians import GaussianInputs
 from sgs_tpu_torch.render import reference
 from sgs_tpu_torch.render.tiled import rasterize_tiled
 
-MODES = ("tiled", "reference")
+MODES = ("tiled", "rect", "reference")
 
 
 def project_and_shade(camera: Camera, gaussians: GaussianInputs,
@@ -65,8 +66,10 @@ def render(camera: Camera, gaussians: GaussianInputs, bg_color: torch.Tensor,
            scaling_modifier: float = 1.0, vspace_tap: "torch.Tensor | None" = None,
            mode: str = "tiled", pixel_block: int = reference.PIXEL_BLOCK) -> dict:
     """Projection and shading, then the rasterizer of `mode` and the
-    background through the final transmittance. "tiled" bins and
-    composites with Kernel A (differentiable through Kernel C); "reference"
+    background through the final transmittance. "tiled" bins tightly and
+    composites with Kernel A (differentiable through Kernel C), "rect"
+    bins each Gaussian's whole rect (the same pixels, more instances);
+    "reference"
     composites every pixel against every Gaussian, `pixel_block` pixels
     at a time (differentiable by autograd).
 
@@ -84,10 +87,10 @@ def render(camera: Camera, gaussians: GaussianInputs, bg_color: torch.Tensor,
     half_size = torch.tensor([0.5 * camera.image_width, 0.5 * camera.image_height],
                              dtype=torch.float32, device=dev)
     mean2d = p["mean2d"] + vspace_tap[:, :2] * half_size[None, :]
-    if mode == "tiled":
+    if mode != "reference":
         image, aux = rasterize_tiled(
             mean2d, p["depth"], p["conic"], p["rgb"], p["opacity"], p["radius"], p["valid"],
-            bg_color, camera.image_width, camera.image_height,
+            bg_color, camera.image_width, camera.image_height, tight=mode == "tiled",
         )
         n_instances = aux["n_instances"]
     else:

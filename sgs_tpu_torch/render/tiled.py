@@ -4,7 +4,9 @@
 Gaussians are depth-sorted once, stably on (depth, index), with culled
 ones at +inf. Each visible Gaussian expands into tile rows of its 3-sigma
 rectangle; tight culling cuts each row to the exact tile interval where
-its alpha can reach 1/255 (`x_tile_interval`). Rows expand into
+its alpha can reach 1/255 (`x_tile_interval`); with tight=False (JAX's
+`--no-tight_culling`) every row keeps its whole rect, which composites to
+the same pixels from more instances. Rows expand into
 (Gaussian, tile) instances emitted in depth-rank order, and one stable
 sort by tile id then leaves every tile's list in front-to-back order,
 which is the order the JAX kernels composite in.
@@ -95,8 +97,8 @@ def bin_gaussians(mean2d, conic, opacity, depth, radius, valid,
     (presort position of each tile-sorted instance), rank_start (N+1,)
     int64 (presort run of each depth rank) and order (N,) int64 (depth
     rank -> Gaussian id). tight=False keeps the full 3-sigma rect rows
-    (the reference binning): the tests use it to show that tight culling
-    leaves the composited image as it is."""
+    (the reference binning, JAX's `--no-tight_culling`): the same pixels
+    from more instances."""
     dev = mean2d.device
     tiles_x = -(-width // TILE)
     tiles_y = -(-height // TILE)
@@ -167,7 +169,7 @@ class RasterizeFunction(torch.autograd.Function):
     the custom VJP `_rasterize_core`.
 
     forward(mean2d, depth, conic, rgb, opacity, radius, valid, bg, width,
-    height, aux) returns the (3, H, W) image color + t_final * bg and puts
+    height, aux, tight) returns the (3, H, W) image color + t_final * bg and puts
     n_instances, t_final, n_contrib, the bins and Kernel A's arguments
     into the dict `aux`.
     backward returns gradients for mean2d, conic, rgb, opacity and bg
@@ -175,8 +177,9 @@ class RasterizeFunction(torch.autograd.Function):
     valid and the static arguments."""
 
     @staticmethod
-    def forward(ctx, mean2d, depth, conic, rgb, opacity, radius, valid, bg, width, height, aux):
-        bins = bin_gaussians(mean2d, conic, opacity, depth, radius, valid, width, height)
+    def forward(ctx, mean2d, depth, conic, rgb, opacity, radius, valid, bg, width, height, aux,
+                tight):
+        bins = bin_gaussians(mean2d, conic, opacity, depth, radius, valid, width, height, tight)
         args = kernel_args(bins, mean2d, conic, opacity, rgb, width, height)
         color, t_final, n_contrib = flat_raster.rasterize_tiles(*args)
         bg32 = bg.to(torch.float32)
@@ -201,17 +204,18 @@ class RasterizeFunction(torch.autograd.Function):
         )
         d_bg = torch.sum(t_final[None] * dc, dim=(1, 2)).to(ctx.bg_dtype)
         return (grads[:, 0:2], None, grads[:, 2:5], grads[:, 6:9], grads[:, 5],
-                None, None, d_bg, None, None, None)
+                None, None, d_bg, None, None, None, None)
 
 
 def rasterize_tiled(mean2d, depth, conic, rgb, opacity, radius, valid, bg,
-                    width: int, height: int):
-    """Bin, composite with Kernel A, then add t_final * bg; differentiable
-    through Kernel C.
+                    width: int, height: int, tight: bool = True):
+    """Bin (tightly, or each Gaussian's whole rect with tight=False),
+    composite with Kernel A, then add t_final * bg; differentiable through
+    Kernel C.
 
     Returns ((3, H, W) image, aux) with aux = {n_instances, t_final,
     n_contrib, bins, args (Kernel A's)}."""
     aux: dict = {}
     image = RasterizeFunction.apply(mean2d, depth, conic, rgb, opacity, radius, valid, bg,
-                                    width, height, aux)
+                                    width, height, aux, tight)
     return image, aux

@@ -10,7 +10,8 @@ unused, as in JAX; --detect_anomaly turns on
 --profile_dir writes a `torch.profiler` Chrome trace of the whole
 `training(...)` call to <profile_dir>/trace.json (JAX: a `jax.profiler`
 trace over the same window). `--rasterizer reference` trains through
-the O(N*P) oracle, its backward by autograd. Runs on the card; --device
+the O(N*P) oracle, its backward by autograd; `--no-tight_culling` bins
+each Gaussian's whole rect (JAX's rect binning). Runs on the card; --device
 cpu runs the plain PyTorch versions of the kernels instead.
 `utils/general.safe_state` stamps every printed line (--quiet silences
 them) and seeds `random`, `numpy` and `torch` with 0; stdout is put back

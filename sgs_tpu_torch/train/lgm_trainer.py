@@ -122,7 +122,7 @@ def training_lgm(dataset: ModelParams, opt: OptimizationParams, pipe: PipelinePa
 
     if dataset.sh_degree != 0:
         raise ValueError("train_lgm requires sh_degree == 0")
-    check_rasterizer(pipe)
+    mode = check_rasterizer(pipe)
     dev = resolve_device(device)
     model_path = dataset.model_path
     os.makedirs(model_path, exist_ok=True)
@@ -159,7 +159,7 @@ def training_lgm(dataset: ModelParams, opt: OptimizationParams, pipe: PipelinePa
     for iteration in range(first_iter + 1, opt.iterations + 1):
         network_gui.serve(
             lambda cam, sm: torch.clamp(render(cam, model.render_inputs(active_sh_degree), bg_color,
-                                               scaling_modifier=sm, mode=pipe.rasterizer)["render"],
+                                               scaling_modifier=sm, mode=mode)["render"],
                                         0.0, 1.0),
             dataset.source_path, iteration, opt.iterations, dev,
         )
@@ -172,13 +172,13 @@ def training_lgm(dataset: ModelParams, opt: OptimizationParams, pipe: PipelinePa
             bg = bg_color
 
         adam, metrics = lgm_train_step(model, adam, cam.camera, cam.gt_image, bg,
-                                       opt.lambda_dssim, active_sh_degree, pipe.rasterizer)
+                                       opt.lambda_dssim, active_sh_degree, mode)
         ema_loss = 0.4 * float(metrics["loss"]) + 0.6 * ema_loss
         if not pipe.no_tqdm and iteration % 100 == 0:
             print(f"[{iteration}] ema loss {ema_loss:.6f}")
 
         if iteration in testing_iterations:
-            report_lgm(iteration, scene, model, active_sh_degree, bg_color, pipe.rasterizer)
+            report_lgm(iteration, scene, model, active_sh_degree, bg_color, mode)
         if iteration in saving_iterations:
             path = os.path.join(model_path, f"point_cloud/iteration_{iteration}", "point_cloud.ply")
             with torch.no_grad():

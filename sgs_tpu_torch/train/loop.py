@@ -82,7 +82,7 @@ def train_step(state: TrainState, camera: Camera, gt_image: torch.Tensor, bg_col
                freeze_xyz: bool = False, apply_update: bool = True,
                mode: str = "tiled") -> Tuple[TrainState, dict]:
     """One optimisation step on one view, rendered by the rasterizer of
-    `mode` ("tiled" or "reference"). Returns (new state, metrics): loss,
+    `mode` ("tiled", "rect" or "reference"). Returns (new state, metrics): loss,
     l1, n_visible, overflow (always 0: the port sizes its arrays from real
     counts) and nonfinite_grads, all as tensors."""
     model = state.model

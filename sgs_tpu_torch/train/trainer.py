@@ -35,9 +35,10 @@ slice), the test report, the PLYs and the checkpoints. Rank 0 alone
 writes losses.tsv, cfg_args, the PLYs and the checkpoints. The viewer is
 served by rank 0 in dp and not in hybrid (its state is sliced).
 
-Not ported, raising where the JAX trainer would use it: the tiled
-rasterizer without tight culling (JAX's rect binning). The port does not
-import tensorboard: it prints the line the JAX trainer prints when
+`--no-tight_culling` bins each Gaussian's whole rect (JAX's rect binning:
+the same pixels from more instances). Not ported, raising where the JAX
+trainer would use it: hybrid training without tight culling. The port does
+not import tensorboard: it prints the line the JAX trainer prints when
 tensorboard is missing ("Tensorboard not available: not logging
 progress") and trains on.
 """
@@ -99,10 +100,14 @@ def grow_state(state: TrainState, new_capacity: int) -> TrainState:
 PARALLEL_MODES = ("none", "dp", "hybrid")
 
 
-def _check_pipeline(pipe: PipelineParams) -> None:
+def _check_pipeline(pipe: PipelineParams) -> str:
+    """The render mode of the pipeline flags (`check_rasterizer`)."""
     if pipe.parallel not in PARALLEL_MODES:
         raise ValueError(f"unknown --parallel mode {pipe.parallel!r}")
-    check_rasterizer(pipe)
+    mode = check_rasterizer(pipe)
+    if mode == "rect" and pipe.parallel == "hybrid":
+        raise NotImplementedError("hybrid training renders its bands with tight culling only")
+    return mode
 
 
 def _sample_like_bucket_sizing(py_rng: random.Random, cams: list) -> None:
@@ -198,7 +203,7 @@ def training(dataset: ModelParams, opt: OptimizationParams, pipe: PipelineParams
              scene=None, seed: int = 0, device: "str | torch.device" = "cuda") -> TrainState:
     from sgs_tpu_torch.data.scene import Scene
 
-    _check_pipeline(pipe)
+    mode = _check_pipeline(pipe)
     par = None
     if pipe.parallel != "none":
         dev = mesh_lib.init_distributed(device)
@@ -253,8 +258,7 @@ def training(dataset: ModelParams, opt: OptimizationParams, pipe: PipelineParams
     for iteration in range(first_iter + 1, opt.iterations + 1):
         if par is None or (par.mode == "dp" and par.rank0):
             network_gui.serve(
-                lambda cam, sm: eval_render(state.model, cam, bg_color, active_sh_degree,
-                                            pipe.rasterizer),
+                lambda cam, sm: eval_render(state.model, cam, bg_color, active_sh_degree, mode),
                 dataset.source_path, iteration, opt.iterations, dev,
             )
         if iteration % 1000 == 0 and active_sh_degree < dataset.sh_degree:
@@ -272,11 +276,11 @@ def training(dataset: ModelParams, opt: OptimizationParams, pipe: PipelineParams
             state, metrics = train_step(
                 state, cam.camera, cam.gt_image, bg, lrs, active_sh_degree=active_sh_degree,
                 lambda_dssim=opt.lambda_dssim, freeze_xyz=dataset.freeze_xyz,
-                apply_update=iteration < opt.iterations, mode=pipe.rasterizer,
+                apply_update=iteration < opt.iterations, mode=mode,
             )
         else:
             state, metrics = par.step(state, cams_b, bg, lrs, active_sh_degree, opt, dataset,
-                                      iteration, py_rng, train_cams, pipe.rasterizer)
+                                      iteration, py_rng, train_cams, mode)
         nfg = int(metrics["nonfinite_grads"])
         nonfinite_total += nfg
         if nfg:
@@ -287,7 +291,7 @@ def training(dataset: ModelParams, opt: OptimizationParams, pipe: PipelineParams
         full = par.full(state) if par is not None and reporting else state
         if writer and iteration in testing_iterations:
             training_report(tsv, iteration, scene, full.model, active_sh_degree, bg_color,
-                            mode=pipe.rasterizer)
+                            mode=mode)
         if writer and iteration in saving_iterations:
             print(f"\n[ITER {iteration}] Saving Gaussians")
             scene.save(full.model, iteration)

@@ -16,7 +16,7 @@ call returns. The network viewer listens on --ip/--port (127.0.0.1:6009)
 and is served once per iteration; a port that cannot be bound prints
 "network_gui disabled: ..." and training goes on. `--rasterizer
 reference` trains and reports through the O(N*P) oracle, its backward by
-autograd. Runs on the card; --device cpu runs the plain PyTorch versions
+autograd; `--no-tight_culling` bins each Gaussian's whole rect. Runs on the card; --device cpu runs the plain PyTorch versions
 of the kernels instead. --debug_from, --detect_anomaly and --debug_latent
 are accepted and unused, as in JAX.
 """

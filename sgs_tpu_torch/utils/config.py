@@ -47,9 +47,9 @@ class PipelineParams:
     compute_cov3D_python: bool = False
     no_tqdm: bool = False
     debug: bool = False
-    # "tiled" (binning and Kernel A; tight culling only) or "reference"
-    # (the O(N*P) oracle); the rest is kept by name for command-line
-    # compatibility: the port runs on a single device only
+    # "tiled" (binning and Kernel A; tight culling unless
+    # --no-tight_culling) or "reference" (the O(N*P) oracle);
+    # raster_backend is kept by name for command-line compatibility
     rasterizer: str = "tiled"
     raster_backend: str = "auto"
     parallel: str = "none"
@@ -153,11 +153,14 @@ def get_combined_args(parser: ArgumentParser, argv=None) -> Namespace:
     return Namespace(**merged)
 
 
-def check_rasterizer(pipe: PipelineParams) -> None:
-    """The port renders with the tiled rasterizer and tight culling, or with
-    the reference rasterizer (the O(N*P) oracle)."""
+def check_rasterizer(pipe: PipelineParams) -> str:
+    """The render mode of the pipeline flags: "tiled" (tight culling),
+    "rect" (the tiled rasterizer with the full 3-sigma rect binning,
+    `--no-tight_culling`) or "reference" (the O(N*P) oracle). Raises on
+    any other rasterizer."""
     if pipe.rasterizer == "reference":
-        return
-    if pipe.rasterizer != "tiled" or not pipe.tight_culling:
-        raise NotImplementedError("the port renders with the tiled rasterizer and tight culling "
-                                  "or with the reference rasterizer only")
+        return "reference"
+    if pipe.rasterizer != "tiled":
+        raise NotImplementedError(f"unknown rasterizer {pipe.rasterizer!r}: the port renders with the "
+                                  "tiled rasterizer or with the reference rasterizer")
+    return "tiled" if pipe.tight_culling else "rect"

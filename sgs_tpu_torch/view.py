@@ -2,6 +2,7 @@
 
     python -m sgs_tpu_torch.view -m <model_dir> [--iteration N] [--frames 24]
         [--radius R] [--height 0.4] [--width 512] [--image_height 512] [-w] [--out orbit/]
+        [--no-tight_culling]
 
 The flags and defaults are `view.py`'s. The model's
 point_cloud/iteration_<N>/point_cloud.ply (-1: the latest) is loaded at
@@ -9,7 +10,8 @@ point_cloud/iteration_<N>/point_cloud.ply (-1: the latest) is loaded at
 their largest offset from it) and `height` x that offset, with a 55
 degree horizontal field of view (`utils/toy_scene.circle_pose` and
 `camera_from_c2w`); each frame renders through the tiled path (binning
-and Kernel A on the card) and is written as `frame_XXX.png`
+and Kernel A on the card; `--no-tight_culling` bins each Gaussian's whole
+rect, as `view.py` does, to the same pixels) and is written as `frame_XXX.png`
 (`data/png.py`), then all as `orbit.gif` (`data/gif.py`, 120 ms a frame,
 looping). Runs on the card; --device cpu runs the plain versions.
 """
@@ -19,7 +21,7 @@ from __future__ import annotations
 import math
 import os
 import sys
-from argparse import ArgumentParser
+from argparse import ArgumentParser, BooleanOptionalAction
 
 import numpy as np
 import torch
@@ -37,6 +39,7 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--image_height", type=int, default=512)
     parser.add_argument("--white_background", "-w", action="store_true")
     parser.add_argument("--out", type=str, default="")
+    parser.add_argument("--tight_culling", default=True, action=BooleanOptionalAction)
     parser.add_argument("--device", default="cuda")
     return parser
 
@@ -85,7 +88,7 @@ def main(argv=None) -> None:
     with torch.no_grad():
         inputs = pool.render_inputs(args.sh_degree)
         for i, cam in enumerate(orbit_cameras(center, spread, args, dev)):
-            out = render(cam, inputs, bg, mode="tiled")
+            out = render(cam, inputs, bg, mode="tiled" if args.tight_culling else "rect")
             img = np.clip(out["render"].cpu().numpy().transpose(1, 2, 0), 0, 1)
             frame = (img * 255).astype(np.uint8)
             write_png(os.path.join(out_dir, f"frame_{i:03d}.png"), frame)

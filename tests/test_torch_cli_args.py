@@ -192,15 +192,20 @@ def test_render_without_eval_renders_no_test_set(trained, how):
 
 
 def test_render_refuses_the_reference_rasterizer(trained):
-    """The render CLI refuses the rasterizers it does not run, the tiled one
-    without tight culling; `--rasterizer reference` (the oracle, which the
-    port now runs) renders the test set to the tiled path's PNGs within one
-    8-bit level."""
+    """The render CLI refuses a rasterizer it does not run; `--rasterizer
+    reference` (the oracle, which the port now runs) renders the test set
+    to the tiled path's PNGs within one 8-bit level, and the tiled one
+    without tight culling (rect binning) to the same PNGs."""
     _, model = trained
     with pytest.raises(NotImplementedError, match="tiled rasterizer"):
-        render_cli.main(["-m", str(model), "--no-tight_culling", "--device", "cpu"])
+        render_cli.main(["-m", str(model), "--rasterizer", "xla", "--device", "cpu"])
     render_cli.main(["-m", str(model), "--skip_train", "--device", "cpu"])
     tiled = [read_png(str(p)) for p in sorted((model / "test").glob("ours_*/renders/*.png"))]
+    render_cli.main(["-m", str(model), "--skip_train", "--no-tight_culling", "--device", "cpu"])
+    rect = [read_png(str(p)) for p in sorted((model / "test").glob("ours_*/renders/*.png"))]
+    assert len(rect) == len(tiled) == 2
+    for a, b in zip(rect, tiled):
+        np.testing.assert_array_equal(a, b)
     render_cli.main(["-m", str(model), "--rasterizer", "reference", "--skip_train", "--device", "cpu"])
     oracle = [read_png(str(p)) for p in sorted((model / "test").glob("ours_*/renders/*.png"))]
     assert len(oracle) == len(tiled) == 2

@@ -62,6 +62,22 @@ def test_raster_kernel_matches_plain(dev, w, h):
         assert torch.equal(g, wv), "Kernel A differs from its plain version"
 
 
+@pytest.mark.parametrize("w,h", [(64, 48), (250, 190)])
+def test_rect_binning_equals_tight_on_the_card(dev, w, h):
+    """--no-tight_culling: Kernel A on the rect bins composites the tight
+    bins' image, bit for bit, from more instances."""
+    sc = _scene(1, 2000, w, h, dev)
+    out = {}
+    for tight in (True, False):
+        bins = tiled.bin_gaussians(sc["mean2d"], sc["conic"], sc["opacity"], sc["depth"],
+                                   sc["radius"], sc["valid"], w, h, tight)
+        args = tiled.kernel_args(bins, sc["mean2d"], sc["conic"], sc["opacity"], sc["rgb"], w, h)
+        color, t_final, _ = flat_raster.rasterize_tiles(*args)
+        out[tight] = (color, t_final, bins["point_list"].shape[0])
+    assert out[True][2] < out[False][2]
+    assert torch.equal(out[True][0], out[False][0]) and torch.equal(out[True][1], out[False][1])
+
+
 SSIM_SIZES = [(7, 9), (37, 53), (64, 128), (100, 244), (800, 800), (1080, 1920)]
 
 

@@ -5,10 +5,17 @@
   iterations of the guard's warnings there, the checkpoint layout of
   `runs/flagship_r5/chkpnt15000.npz`, and the configuration in `cfg_args`
   and `opt_args`.
+- Its statistics of JAX's states (`JAX_STATS`) equal those computed from
+  `runs/resume3000.npz` and `runs/flagship_r5/chkpnt*.npz`, the per-view
+  test PSNR of the 13,000 checkpoint (JAX's reference there) included.
+- A start packed for the card's machine (`--pack_starts`) unpacks to the
+  same checkpoint.
 - Its parsing and comparison run on a 30-iteration toy run with
-  `--device cpu` (three reports, a densify, the checkpoint reloaded and
-  its one step's report equal to the last one), and `--report` on that
-  run's checkpoint repeats its last test report.
+  `--device cpu` (three reports, a densify, the state statistics, the
+  checkpoint reloaded and its one step's report equal to the last one),
+  and `--report` on that run's checkpoint repeats its last test report;
+  `--start jax_procedure` replays JAX's break on the toy scene, with JAX's
+  reduction (`--reduction jax_prefix`).
 """
 
 import ast
@@ -54,6 +61,60 @@ def test_jax_constants_equal_the_run_files():
     assert lr.TEST_ITERATIONS == tuple(sorted(lr.JAX_REPORTS))
 
 
+@pytest.mark.parametrize("iteration", [3000, 7000, 10000, 13000, 15000])
+def test_jax_stats_equal_the_checkpoints(iteration):
+    path = lr.START_FILES["resume3000"] if iteration == 3000 else os.path.join(RUN, f"chkpnt{iteration}.npz")
+    z = np.load(path)
+    want = lr.JAX_STATS[iteration]
+    got = lr.state_stats(z)
+    for base in ("resume3000", "chkpnt10000"):
+        if base == "chkpnt10000" and iteration < 10000:
+            assert all(base not in want[f"d_{f}"] for f in lr.FIELDS)
+            continue
+        d = lr.state_stats(z, np.load(lr.START_FILES[base]))
+        got.update({f"d_{f}": {**got.get(f"d_{f}", {}), base: d[f"d_{f}"]} for f in lr.FIELDS})
+    for k, v in got.items():
+        assert want[k] == v, k
+    assert want["alive"] == int(z["alive"].sum()) and len(want["test_psnr_per_view"]) == 8
+    np.testing.assert_allclose(np.mean(want["test_psnr_per_view"]), want["test_psnr"], rtol=1e-12)
+    if iteration in lr.JAX_REPORTS and iteration != 7000:  # 7,000's checkpoint is past its densify
+        assert abs(want["test_psnr"] - lr.JAX_REPORTS[iteration][1]) < 5e-4
+    if iteration == 13000:  # JAX's reference for the chkpnt10000 start: its per-view PSNR (the
+        # CPU's thread count moves the image's sums in the last bits)
+        views = lr.per_view_psnr(path, str(lr.SCENE), "cpu")
+        np.testing.assert_allclose([p for p, _ in views], want["test_psnr_per_view"], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(np.mean([l1 for _, l1 in views]), want["test_l1"], rtol=1e-5)
+
+
+def test_packed_start_unpacks_to_the_checkpoint(tmp_path):
+    from sgs_tpu_torch.models.gaussians import DensifyStats, GaussianModel
+    from sgs_tpu_torch.train.checkpoint import save_checkpoint
+    from sgs_tpu_torch.train.loop import TrainState
+    from sgs_tpu_torch.train.optim import AdamState
+
+    rng = np.random.default_rng(3)
+    model = GaussianModel.empty(64, 3, "cpu")
+    alive = torch.from_numpy(rng.random(64) < 0.6)
+    for f in lr.FIELDS:
+        x = getattr(model, f)
+        x[alive] = torch.from_numpy(rng.normal(size=(int(alive.sum()),) + tuple(x.shape[1:])).astype(np.float32))
+    model.alive = alive
+    moments = lambda: {f: torch.where(alive.reshape((-1,) + (1,) * (getattr(model, f).dim() - 1)),  # noqa: E731
+                                      torch.rand_like(getattr(model, f)), 0.0) for f in lr.FIELDS}
+    adam = AdamState(mu=moments(), nu=moments(), step={f: 17 for f in lr.FIELDS})
+    stats = DensifyStats.zeros(64, "cpu")
+    stats.denom[alive] = 3.0
+    src, packed, back = tmp_path / "src.npz", tmp_path / "packed.npz", tmp_path / "back.npz"
+    save_checkpoint(str(src), TrainState(model=model, adam=adam, stats=stats), 3000, 3, 4.5)
+    lr.pack_start(str(src), str(packed))
+    lr.unpack_start(str(packed), str(back))
+    a, b = np.load(src), np.load(back)
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+        assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
 def test_layout_mismatch_is_reported():
     want = {k: (s, d) for k, (s, d) in lr.JAX_CHECKPOINT.items()}
     assert lr.layout_mismatches(want) == []
@@ -91,6 +152,14 @@ def test_toy_run_parses_compares_and_reloads(toy_scene, tmp_path, capsys):
     assert res["peak_device_bytes"] is None and "not measured" in printed
     assert res["checkpoint_layout_ok"], res["checkpoint_layout_mismatches"]
     assert res["reload_equal"] and res["reload_report"]["test_psnr"] == res["reports"][2]["test_psnr"]
+    # the state beside JAX's at each report: no start state before 3,000, so no d_<field>
+    for r in res["reports"]:
+        assert r["stats"]["alive"] > 0 and len(r["stats"]["test_psnr_per_view"]) == 2
+        assert set(r["jax_stats"]) >= {"alive", "nu_xyz", "opacity_over_half", "median_max_scale"}
+        assert "d_xyz" not in r["stats"]
+    assert res["first_departure"]["iteration"] == 10
+    assert [w["to"] for w in res["densify_windows"]] == [10, 20, 30]
+    assert sum(w["steps"] for w in res["densify_windows"]) == 1
     assert (tmp_path / "model" / "chkpnt30.npz").exists()
     assert (tmp_path / "model" / "point_cloud" / "iteration_30" / "point_cloud.ply").exists()
     assert not (tmp_path / "model" / "chkpnt10.npz").exists()
@@ -101,3 +170,21 @@ def test_toy_run_parses_compares_and_reloads(toy_scene, tmp_path, capsys):
     last = res["reports"][2]
     assert again["reports"][0]["iteration"] == 30
     assert (again["reports"][0]["test_psnr"], again["reports"][0]["gaussians"]) == (last["test_psnr"], last["gaussians"])
+
+
+def test_toy_jax_procedure(toy_scene, tmp_path):
+    """The break of JAX's run replayed: 12 iterations with the PLY at 12, a
+    checkpoint rebuilt from it (fresh Adam, zero statistics), then the
+    resume to 30; the statistics measure from the rebuilt state."""
+    res = lr.main(["--scene", toy_scene, "--out", str(tmp_path / "model"), "--start", "jax_procedure",
+                   "--resume_iteration", "12", "--iterations", "30", "--densify_until_iter", "25",
+                   "--test_iterations", "15", "20", "30", "--device", "cpu", "--densify_from_iter", "5",
+                   "--densification_interval", "5", "--reduction", "jax_prefix"])
+    rebuilt = np.load(tmp_path / "model" / "resume12.npz")
+    assert int(rebuilt["iteration"]) == 12 and int(rebuilt["adam_step_xyz"]) == 0
+    assert not rebuilt["adam_nu_xyz"].any() and not rebuilt["denom"].any()
+    assert (tmp_path / "model" / "first" / "point_cloud" / "iteration_12" / "point_cloud.ply").exists()
+    assert res["start"] == "jax_procedure" and res["reduction"] == "jax_prefix"
+    assert [r["iteration"] for r in res["reports"]] == [15, 20, 30]
+    assert all("d_xyz" in r["stats"] and r["stats"]["d_xyz"] > 0 for r in res["reports"])
+    assert res["reload_equal"] and res["checkpoint_layout_ok"]
