@@ -201,11 +201,27 @@ Phases:
      its arguments; (b) 10 steps of the train CLI with --no-tight_culling
      from phase 5's checkpoint, A-D once a step, the snapshot's fields
      beside phase 5's;
- 16. a `{"kernels": [...]}` line (A-D also with `readers_launches`, their
+ 16. the benchmarks' path at 1920x1080 (`python -m sgs_tpu_torch.bench`,
+     `python -m sgs_tpu_torch.tools.bench_scale`): (a) the flagship with
+     bench.py's framing through `bench.measure` (10 forward+backward steps
+     of the L1 loss and 10 renders, each after a warm-up; A 22 and C 11
+     launches), the render-only image equal to the forward+backward image
+     bit for bit, A and C against their plain versions over the whole frame
+     bit for bit, frames/s and peak memory; (b) the 5M-Gaussian panning
+     capture (BASELINE's garden scale): two forward+backward calls with a
+     finite loss and gradients, the same bits in both, A and C against
+     their plain versions on the 8 longest tile lists and 8 seeded draws
+     (every other list emptied), bit for bit; in both the binning's counts
+     (and the 5M pool's all-visible view's) against JAX's
+     (`JAX_BENCH_COUNTS`, from tests/bench_counts.py) within 1e-5, the
+     longest list, A's and C's device ms against their bounds, the
+     forward+backward split into stages and its device busy share;
+ 17. a `{"kernels": [...]}` line (A-D also with `readers_launches`, their
      launches over phase 11, `tools_launches`, theirs over phase 13,
      `parallel_launches`, theirs over phase 14 (a) and (b),
-     `rect_launches`, theirs over phase 15, and A and B with
-     `eval_launches`, theirs over phase 12), the device line, and
+     `rect_launches`, theirs over phase 15, A and B with
+     `eval_launches`, theirs over phase 12, and A and C with
+     `bench_launches`, theirs over phase 16), the device line, and
      last the result line `{"ok": true, "device": {...}}`.
 
 Any failed phase raises and the script exits nonzero. It needs the
@@ -257,12 +273,14 @@ from sgs_tpu_torch.render.cli import main as render_main
 from sgs_tpu_torch.render.cli import render_sets
 from sgs_tpu_torch.render.pipeline import project_and_shade, render
 from sgs_tpu_torch.render.tiled import bin_gaussians, kernel_args
+from sgs_tpu_torch import bench
 from sgs_tpu_torch import train_zero123
 from sgs_tpu_torch import view as view_cli
 from sgs_tpu_torch.analyze_model import main as analyze_main
-from sgs_tpu_torch.tools import (colmap_scene, exp_bounds, exp_dma_gather, exp_fwd, exp_fwd2,
-                                 exp_gather_layout, exp_scene, exp_transposed, exp_vmem_gather,
-                                 gather_inputs, jpeg_times, l2_rate, oracle_times, scan_ablation)
+from sgs_tpu_torch.tools import (bench_scale, colmap_scene, exp_bounds, exp_dma_gather, exp_fwd,
+                                 exp_fwd2, exp_gather_layout, exp_scene, exp_transposed,
+                                 exp_vmem_gather, gather_inputs, jpeg_times, l2_rate, oracle_times,
+                                 scan_ablation)
 # the bounds' peak rates (H100 SXM, NVIDIA's data sheet) are defined there
 from sgs_tpu_torch.tools.exp_bounds import bound_ms
 from sgs_tpu_torch.tools.ssim_times import time_ms
@@ -452,6 +470,22 @@ STEP_RTOL, STEP_ATOL_SCALE = 1e-4, 2e-4
 PARALLEL_ITERS = 40
 RECT_DIR = ROOT / "build" / "smoke" / "rect"
 RECT_IMAGE_ATOL = 3e-5
+# Phase 16 (bench): the flagship with bench.py's framing and the 5M garden
+# scale (tools/bench_scale.py) at 1920x1080. JAX's binning counts there,
+# from the JAX scripts' own count pre-passes (tests/bench_counts.py on the
+# CPU: bench.py::_measure and scripts/bench_scale.py::run_config); the
+# card's counts must equal them within BENCH_COUNT_RTOL of the count.
+BENCH_SIZE = (1920, 1080)
+BENCH_N = 5_000_000
+JAX_BENCH_COUNTS = {
+    "flagship": {"visible": 161_680, "rows": 439_749, "instances": 880_062},
+    "capture": {"visible": 2_795_688, "rows": 4_753_918, "instances": 6_526_931},
+    "all_visible": {"visible": 4_906_751, "rows": 8_350_160, "instances": 11_629_659},
+}
+BENCH_COUNT_RTOL = 1e-5
+# the 5M view's A and C against their plain versions on the 8 longest
+# tile lists and 8 more drawn with this seed (the other lists emptied)
+BENCH_SAMPLE_TILES, BENCH_SAMPLE_SEED = 8, 16
 STAMP = re.compile(r" \[\d\d/\d\d \d\d:\d\d:\d\d\]$")
 MEASURED = {}
 
@@ -1070,7 +1104,6 @@ def phase_step(dev, model, view) -> dict:
     versions on the step's own inputs, and the step split into stages."""
     cam, gt = view.camera, view.gt_image
     bg = torch.zeros(3, device=dev)
-    w, h = cam.image_width, cam.image_height
     got = step_grads(model, cam, gt, bg)
     with plain_path():
         want = step_grads(model, cam, gt, bg)
@@ -1078,7 +1111,7 @@ def phase_step(dev, model, view) -> dict:
     worst = check_grads(got, want)
 
     # the step's own inputs to Kernels C and D
-    p, args, bargs, img, cot = step_kernel_inputs(model.render_inputs(SH_DEGREE), cam, gt, bg)
+    _, args, bargs, img, cot = step_kernel_inputs(model.render_inputs(SH_DEGREE), cam, gt, bg)
     err_c = compare_raster_backward(bargs)
     err_d = compare_ssim_backward(img, gt, cot)
     err_b = compare_ssim(img, gt)
@@ -1088,11 +1121,7 @@ def phase_step(dev, model, view) -> dict:
           f"equal to their plain versions bit for bit")
 
     # stages of one step, CUDA events, means over the reps
-    leaves = {f: getattr(model, f).detach().requires_grad_(True) for f in PARAM_FIELDS}
-    grad_model = model.with_params(leaves)
-    stages = {}
-    stages["projection+SH"] = time_cuda(lambda: project_and_shade(cam, grad_model.render_inputs(SH_DEGREE)), 5)
-    stages["binning"] = time_cuda(lambda: raster_inputs(p, w, h), 5)
+    stages = host_stages(model, cam, 5)
     stages["A"] = time_ms(lambda: flat_raster.rasterize_tiles(*args), 10)
     stages["B"] = time_ms(lambda: ssim_ops.ssim_forward(img, gt), 20)
     inst = torch.empty((bargs[2].shape[0], flat_raster.N_GRADS), device=dev)
@@ -1101,11 +1130,6 @@ def phase_step(dev, model, view) -> dict:
     c_ms = time_ms(lambda: flat_raster.rasterize_tiles_backward(*bargs), 10)
     stages["D"] = time_ms(lambda: ssim_ops.ssim_backward(img, gt, cot, with_dy=False), 20)
     d_both_ms = time_ms(lambda: ssim_ops.ssim_backward(img, gt, cot), 20)
-    pg = project_and_shade(cam, grad_model.render_inputs(SH_DEGREE))
-    outs = [pg["mean2d"], pg["conic"], pg["rgb"], pg["opacity"]]
-    cots = [torch.ones_like(o) for o in outs]
-    stages["autograd projection+SH"] = time_cuda(
-        lambda: torch.autograd.grad(outs, list(leaves.values()), cots, retain_graph=True), 5)
     params = model.params()
     grads = {f: got[f] for f in PARAM_FIELDS}
     adam = AdamState.init(params)
@@ -1120,6 +1144,26 @@ def phase_step(dev, model, view) -> dict:
     profile_steps(lambda: train_step(state, cam, gt, bg, lrs, SH_DEGREE))
     return {"bargs": bargs, "img": img, "gt": gt, "cot": cot, "B": err_b, "C": err_c, "D": err_d,
             "c_ms": c_ms, "d_ms": d_both_ms, "stages": stages, "step_ms": step_ms}
+
+
+def host_stages(model, cam, reps: int) -> dict:
+    """The stages of a forward+backward around the kernels, host included
+    (CUDA events, means over `reps`): projection and SH forward with the
+    graph built, binning (`bin_gaussians` and the kernels' arguments), and
+    autograd through projection and SH (phases 5 and 16)."""
+    w, h = cam.image_width, cam.image_height
+    leaves = {f: getattr(model, f).detach().requires_grad_(True) for f in PARAM_FIELDS}
+    grad_model = model.with_params(leaves)
+    stages = {"projection+SH": time_cuda(
+        lambda: project_and_shade(cam, grad_model.render_inputs(SH_DEGREE)), reps)}
+    pg = project_and_shade(cam, grad_model.render_inputs(SH_DEGREE))
+    p = {k: v.detach() for k, v in pg.items()}
+    stages["binning"] = time_cuda(lambda: raster_inputs(p, w, h), reps)
+    outs = [pg["mean2d"], pg["conic"], pg["rgb"], pg["opacity"]]
+    cots = [torch.ones_like(o) for o in outs]
+    stages["autograd projection+SH"] = time_cuda(
+        lambda: torch.autograd.grad(outs, list(leaves.values()), cots, retain_graph=True), reps)
+    return stages
 
 
 def profile_steps(step, n: int = 5, label: str = "[5 profile]") -> None:
@@ -1187,6 +1231,27 @@ def phase_scratch(dev) -> None:
         f"PSNR {got['PSNR']:.3f} (8-bit PNGs)")
 
 
+def c_bounds(bargs) -> tuple:
+    """Kernel C's bounds on its arguments `bargs`, each (ms, what bounds
+    it): the walk (point_list, perm, tile ranges and schedule, the records
+    of the Gaussians in the lists (`exp_bounds.records_read`), t_final,
+    n_contrib and dC per pixel, bg in; the instance gradients
+    out; OPS_PER_PAIR_BWD operations per instance-pixel pair below
+    n_contrib), the reduction (the instance gradients, rank starts and
+    order in; the Gaussian gradients out) and C as a whole (the walk's
+    inputs plus the reduction's rank starts and order in, the Gaussian
+    gradients out)."""
+    n, m = bargs[4].shape[0], bargs[2].shape[0]
+    hw = bargs[5] * bargs[6]
+    grad_bytes = 4 * flat_raster.N_GRADS
+    records = 4 * flat_raster.REC_WIDTH * exp_bounds.records_read(bargs[2])
+    walk_in = 12 * m + 12 * bargs[0].shape[0] + records + 20 * hw + 12
+    walk_ops = flat_raster.OPS_PER_PAIR_BWD * float(bargs[8].sum())
+    return (bound_ms(walk_in + grad_bytes * m, walk_ops),
+            bound_ms(grad_bytes * m + 8 * (n + 1) + 8 * n + grad_bytes * n, flat_raster.N_GRADS * m),
+            bound_ms(walk_in + 8 * (n + 1) + 8 * n + grad_bytes * n, walk_ops))
+
+
 def phase_timing(dev, errs: dict, launches: dict, views, step: dict) -> list:
     model = GaussianModel.from_ply(str(FLAGSHIP_PLY), SH_DEGREE, dev)
     bg = torch.zeros(3, device=dev)
@@ -1246,18 +1311,7 @@ def phase_timing(dev, errs: dict, launches: dict, views, step: dict) -> list:
     plain_c_ms = (time.perf_counter() - t0) * 1e3
     n, m = bargs[4].shape[0], bargs[2].shape[0]
     hw = bargs[5] * bargs[6]
-    grad_bytes = 4 * flat_raster.N_GRADS
-    # walk: point_list, perm, tile ranges and schedule, records, t_final,
-    # n_contrib and dC per pixel, bg in; the instance gradients out.
-    # Reduction: the instance gradients, rank starts and order in; the
-    # Gaussian gradients out. C as a whole: the walk's inputs plus the
-    # reduction's rank starts and order in, the Gaussian gradients out.
-    walk_in = (12 * m + 12 * bargs[0].shape[0] + 4 * flat_raster.REC_WIDTH * n + 20 * hw + 12)
-    walk_ops = flat_raster.OPS_PER_PAIR_BWD * float(bargs[8].sum())
-    walk_bound = bound_ms(walk_in + grad_bytes * m, walk_ops)
-    reduce_bound = bound_ms(grad_bytes * m + 8 * (n + 1) + 8 * n + grad_bytes * n,
-                            flat_raster.N_GRADS * m)
-    c_bound, c_by = bound_ms(walk_in + 8 * (n + 1) + 8 * n + grad_bytes * n, walk_ops)
+    walk_bound, reduce_bound, (c_bound, c_by) = c_bounds(bargs)
     img, sgt, cot = step["img"], step["gt"], step["cot"]
     plain_d_ms = time_cuda(lambda: ssim_ops.ssim_backward_plain(img, sgt, cot), 3)
     xg = img.clone().requires_grad_(True)
@@ -2848,6 +2902,216 @@ def phase_rect(dev, model, view) -> dict:
     return {k: a_launches[k] + b_launches[k] for k in a_launches}
 
 
+def check_bench_counts(label: str, got: dict, want: dict) -> str:
+    """The card's binning counts against JAX's: equal, or within
+    BENCH_COUNT_RTOL of the count (any difference is printed)."""
+    diffs = {k: got[k] - want[k] for k in want}
+    bad = {k: d for k, d in diffs.items() if abs(d) > BENCH_COUNT_RTOL * want[k]}
+    if bad:
+        raise AssertionError(f"{label} counts {got} differ from JAX's {want}: {bad}")
+    off = {k: d for k, d in diffs.items() if d}
+    return f"equal to JAX's {want}" if not off else f"JAX's {want} but for {off}"
+
+
+def l1_kernel_args(bins, args, bg) -> tuple:
+    """Kernel C's arguments for Kernel A's arguments `args`: A's t_final and
+    n_contrib and the cotangent of the benchmark loss (L1 against zeros)."""
+    color, t_final, n_contrib = flat_raster.rasterize_tiles(*args)
+    image = (color + t_final[None] * bg[:, None, None]).requires_grad_(True)
+    (dc,) = torch.autograd.grad(ssim_ops.l1_loss(image, torch.zeros_like(image)), image)
+    return (*args, t_final, n_contrib, dc.contiguous(), bg, bins["perm"], bins["rank_start"],
+            bins["order"])
+
+
+def sample_tiles(bins, args, tiles: torch.Tensor) -> tuple:
+    """(bins, A's args) with every tile's list but those of `tiles` emptied,
+    the instances of the kept lists in their order, and C's presort
+    permutation and runs renumbered over the kept instances."""
+    tile_start, tile_end, point_list = args[0].long(), args[1].long(), args[2]
+    keep_tile = torch.zeros_like(tile_start, dtype=torch.bool)
+    keep_tile[tiles.long()] = True
+    counts = torch.where(keep_tile, tile_end - tile_start, 0)
+    owner = torch.repeat_interleave(torch.arange(tile_start.shape[0], device=tile_start.device),
+                                    tile_end - tile_start)
+    keep = keep_tile[owner]
+    presort_keep = torch.zeros_like(keep)
+    presort_keep[bins["perm"][keep]] = True
+    renumber = torch.cumsum(presort_keep.long(), 0) - 1
+    cs = torch.cat([renumber.new_zeros(1), renumber + 1])
+    end = torch.cumsum(counts, 0)
+    sub = dict(bins, perm=renumber[bins["perm"][keep]].contiguous(),
+               rank_start=cs[bins["rank_start"]].contiguous())
+    sub_args = ((end - counts).to(torch.int32).contiguous(), end.to(torch.int32).contiguous(),
+                point_list[keep].contiguous(), *args[3:])
+    return sub, sub_args
+
+
+def bench_kernels(label: str, bins, args, bg) -> dict:
+    """Kernel A's, C's and C's walk's device ms on the main path's
+    arguments, printed beside their bounds (`exp_bounds.kernel_a`,
+    `c_bounds`)."""
+    bargs = l1_kernel_args(bins, args, bg)
+    a_row = exp_bounds.kernel_a(args, bargs[8])
+    walk_bound, _, c_bound = c_bounds(bargs)
+    inst = torch.empty((bargs[2].shape[0], flat_raster.N_GRADS), device=bg.device)
+    out = {"A": time_ms(lambda: flat_raster.rasterize_tiles(*args), 10),
+           "C": time_ms(lambda: flat_raster.rasterize_tiles_backward(*bargs), 10),
+           "C walk": time_ms(lambda: flat_raster.raster_backward_walk(bargs, inst), 10)}
+    say(f"[16 bench] {label}: device ms A {out['A']:.4f} (bound {a_row['bound_ms']:.4f}, "
+        f"{a_row['bound_by']}; x{out['A'] / a_row['bound_ms']:.1f}), C {out['C']:.4f} (bound "
+        f"{c_bound[0]:.4f}, {c_bound[1]}; x{out['C'] / c_bound[0]:.1f}), C's walk {out['C walk']:.4f} "
+        f"(bound {walk_bound[0]:.4f}, {walk_bound[1]}; x{out['C walk'] / walk_bound[0]:.1f}); "
+        f"{float(bargs[8].sum()):.0f} instance-pixel pairs below n_contrib")
+    return out
+
+
+def bench_stages(label: str, model, cam, kernels: dict, loss_step, n_profile: int) -> None:
+    """One forward+backward of the benchmark split into stages, as phase 5
+    splits the training step (`host_stages`; A and C from `kernels`,
+    device ms); then `profile_steps` over `n_profile` calls of
+    `loss_step`."""
+    stages = {**host_stages(model, cam, 3), "A": kernels["A"], "C": kernels["C"]}
+    say(f"[16 bench] {label} stages: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f" ms (sum {sum(stages.values()):.3f} ms)")
+    profile_steps(loss_step, n_profile, f"[16 profile] {label}")
+
+
+def phase_bench_flagship(dev) -> dict:
+    """Phase 16 (a): the flagship at 1920x1080 with bench.py's framing
+    through `bench.measure` (ITERS forward+backward steps and ITERS
+    renders, each after a warm-up), launches counted; the render-only
+    image equal to the forward+backward image; A and C against their plain
+    versions over the whole frame, bit for bit, with the benchmark loss's
+    cotangent; the counts against JAX's; A's and C's ms against their
+    bounds; the step's stages and device busy share. Returns A's and C's
+    launches."""
+    width, height = BENCH_SIZE
+    model, cam = bench.build_ply_scene(FLAGSHIP_PLY, width, height, dev)
+    counts = bench_scale.scene_counts(model, cam)
+    said = check_bench_counts("(a)", counts, JAX_BENCH_COUNTS["flagship"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    r = bench.measure(model, cam)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    want = only(A=2 * (bench.ITERS + 1), C=bench.ITERS + 1)
+    if launches != want:
+        raise AssertionError(f"(a) launches {launches}, expected {want}")
+    if not torch.equal(r["image"], r["render_image"]):
+        raise AssertionError("(a) the render-only image differs from the forward+backward image")
+    say(f"[16 bench] (a) flagship at {width}x{height} ({model.num_alive} Gaussians in "
+        f"{model.capacity} slots): counts {counts}, {said}; {bench.ITERS} forward+backward steps "
+        f"{r['fwd_bwd_ms']:.3f} ms each ({r['fps']:.3f} frames/s), {bench.ITERS} renders "
+        f"{r['render_ms']:.3f} ms each ({r['render_fps']:.3f} frames/s); loss {float(r['loss']):.6f}; "
+        f"peak {peak:.3f} GiB; launches {launches}; render-only image equal to the "
+        "forward+backward image")
+    bg = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        p = project_and_shade(cam, model.render_inputs(SH_DEGREE))
+    bins, args = raster_inputs(p, width, height)
+    compare_raster(args)
+    bargs = l1_kernel_args(bins, args, bg)
+    compare_raster_backward(bargs)
+    plain_ms = {}
+    for k, fn in (("A", lambda: flat_raster.rasterize_tiles_plain(*args)),
+                  ("C", lambda: flat_raster.rasterize_tiles_backward_plain(*bargs))):
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        plain_ms[k] = (time.perf_counter() - t1) * 1e3
+    say(f"[16 bench] (a) A and C over the whole frame ({args[2].shape[0]} instances, longest list "
+        f"{counts['longest_list']}) equal to their plain versions bit for bit; one plain call (host "
+        f"clock) A {plain_ms['A']:.1f} ms, C {plain_ms['C']:.1f} ms")
+    ms = bench_kernels(f"(a) flagship {width}x{height}", bins, args, bg)
+    gt = torch.zeros((3, height, width), device=dev)
+    bench_stages("(a)", model, cam, ms, lambda: bench_scale.loss_and_grads(model, cam, gt, bg), 5)
+    return launches
+
+
+def phase_bench_scale(dev) -> dict:
+    """Phase 16 (b): the 5M panning capture (`tools/bench_scale.py`'s
+    scene, BASELINE's garden scale) at 1920x1080: two forward+backward
+    calls of the benchmark loss, launches counted, loss and every
+    gradient finite and the same bits in both; the counts, and those of
+    the all-visible view of the same pool, against JAX's; A and C against
+    their plain versions on the BENCH_SAMPLE_TILES longest lists and as
+    many drawn from the other non-empty lists (every other list emptied);
+    A's and C's ms on the whole frame against their bounds; the stages and
+    device busy share. Returns A's and C's launches."""
+    width, height = BENCH_SIZE
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, cam = bench_scale.scale_scene(BENCH_N, True, width, height, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    counts = bench_scale.scene_counts(model, cam)
+    said = check_bench_counts("(b)", counts, JAX_BENCH_COUNTS["capture"])
+    all_cam = bench_scale.bench_camera([0.0, 0.0, 4.5], width, height, dev)
+    all_counts = bench_scale.scene_counts(model, all_cam)
+    all_said = check_bench_counts("(b) all-visible", all_counts, JAX_BENCH_COUNTS["all_visible"])
+    gt = torch.zeros((3, height, width), device=dev)
+    bg = torch.zeros(3, device=dev)
+    reset_counts()
+    runs, wall = [], []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        runs.append(bench_scale.loss_and_grads(model, cam, gt, bg))
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t1) * 1e3)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if launches != only(A=2, C=2):
+        raise AssertionError(f"(b) launches {launches}, expected A and C twice")
+    (loss, image, n_inst, grads), (loss2, image2, _, grads2) = runs
+    finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads.values())
+    if not finite or n_inst != counts["instances"]:
+        raise AssertionError(f"(b) loss {float(loss)}, finite gradients {finite}, "
+                             f"{n_inst} instances against {counts['instances']} counted")
+    same = torch.equal(loss, loss2) and torch.equal(image, image2) and all(
+        torch.equal(grads[f], grads2[f]) for f in grads)
+    if not same:
+        raise AssertionError("(b) two forward+backward calls differ")
+    say(f"[16 bench] (b) {BENCH_N} Gaussians, panning capture at {width}x{height}: scene built in "
+        f"{build_s:.2f} s; counts {counts}, {said}; all-visible view {all_counts}, {all_said}; two "
+        f"forward+backward calls {wall[0]:.1f} / {wall[1]:.1f} ms (host clock), loss "
+        f"{float(loss):.6f}, every gradient finite, the same bits in both; peak {peak:.3f} GiB; "
+        f"launches {launches}")
+    del runs, loss, image, grads, loss2, image2, grads2
+    with torch.no_grad():
+        p = project_and_shade(cam, model.render_inputs(SH_DEGREE))
+    bins, args = raster_inputs(p, width, height)
+    lengths = (args[1] - args[0]).long()
+    longest = torch.argsort(lengths, descending=True, stable=True)[:BENCH_SAMPLE_TILES]
+    rest = lengths > 0
+    rest[longest] = False
+    g = torch.Generator(device="cpu").manual_seed(BENCH_SAMPLE_SEED)
+    others = torch.nonzero(rest).flatten().cpu()
+    drawn = others[torch.randperm(others.shape[0], generator=g)[:BENCH_SAMPLE_TILES]].to(dev)
+    sub, sub_args = sample_tiles(bins, args, torch.cat([longest, drawn]))
+    compare_raster(sub_args)
+    compare_raster_backward(l1_kernel_args(sub, sub_args, bg))
+    say(f"[16 bench] (b) A and C on {2 * BENCH_SAMPLE_TILES} tiles ({BENCH_SAMPLE_TILES} longest: "
+        f"lists {lengths[longest].tolist()}; {BENCH_SAMPLE_TILES} drawn with seed "
+        f"{BENCH_SAMPLE_SEED}: {lengths[drawn].tolist()}; {sub_args[2].shape[0]} instances) equal "
+        "to their plain versions bit for bit")
+    ms = bench_kernels(f"(b) {BENCH_N} capture {width}x{height}", bins, args, bg)
+    del bins, args, sub, sub_args
+    bench_stages("(b)", model, cam, ms, lambda: bench_scale.loss_and_grads(model, cam, gt, bg), 3)
+    return launches
+
+
+def phase_bench(dev) -> dict:
+    """Phase 16: (a) and (b); returns A's and C's launches over both."""
+    t0 = time.perf_counter()
+    a = phase_bench_flagship(dev)
+    b = phase_bench_scale(dev)
+    say(f"[16 bench] phase wall {time.perf_counter() - t0:.2f} s")
+    return {k: a[k] + b[k] for k in a}
+
+
 def main(device: str = "cuda") -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2874,6 +3138,8 @@ def main(device: str = "cuda") -> int:
     tools = phase_tools(dev)
     parallel = phase_parallel(dev, model, views[0])
     rect = phase_rect(dev, model, views[0])
+    del model
+    benched = phase_bench(dev)
     for entry, k in zip(kernels, "ABCD"):
         entry["readers_launches"] = readers[k]
         entry["tools_launches"] = tools[k]
@@ -2881,7 +3147,9 @@ def main(device: str = "cuda") -> int:
         entry["rect_launches"] = rect[k]
         if k in "AB":
             entry["eval_launches"] = evals["launches"][k]
-    say(f"[16 done] chip_smoke wall {time.perf_counter() - t_start:.2f} s")
+        if k in "AC":
+            entry["bench_launches"] = benched[k]
+    say(f"[17 done] chip_smoke wall {time.perf_counter() - t_start:.2f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

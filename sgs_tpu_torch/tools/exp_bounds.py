@@ -163,16 +163,25 @@ def gather_rows(vmem=None, dma=None, src: int = gather_ops.SRC,
 
 def kernel_a(args, n_contrib) -> dict:
     """Kernel A on its arguments (`render/tiled.py::kernel_args`) and the
-    n_contrib it returned: the point list, the 48-byte records, the tile
-    ranges and schedule in, 20 bytes a pixel out; OPS_PER_PAIR operations
-    for every instance-pixel pair below n_contrib."""
+    n_contrib it returned: the point list, the 48-byte records of the
+    Gaussians it names (`records_read`: A reads records only through the
+    list, so a slot no list names is never read), the tile ranges and
+    schedule in, 20 bytes a pixel out; OPS_PER_PAIR operations for every
+    instance-pixel pair below n_contrib."""
     from sgs_tpu_torch.ops import flat_raster
 
-    nbytes = (4 * args[2].shape[0] + 4 * flat_raster.REC_WIDTH * args[4].shape[0]
+    used = records_read(args[2])
+    nbytes = (4 * args[2].shape[0] + 4 * flat_raster.REC_WIDTH * used
               + 12 * args[0].shape[0] + 20 * args[5] * args[6])
     pairs = float(n_contrib.sum())
     return fixed("Kernel A", "sgs_tpu/ops/pallas/flat_raster.py:492", nbytes,
-                 flat_raster.OPS_PER_PAIR * pairs, P=pairs)
+                 flat_raster.OPS_PER_PAIR * pairs, P=pairs, records_read=used)
+
+
+def records_read(point_list: torch.Tensor) -> int:
+    """The records that Kernels A and C read: those of the distinct
+    Gaussians in the tile lists."""
+    return torch.unique(point_list).numel()
 
 
 def rows(width: int = 1920, height: int = 1080, n: int = 100_000) -> list:

@@ -32,10 +32,10 @@ ROOT = Path(__file__).resolve().parents[2]
 SLEEP_CYCLES = 20_000_000
 
 
-def time_ms(fn, reps: int = 20, hide_host: bool = True) -> float:
-    """Mean ms of `fn` over `reps` calls after three warm-ups, by CUDA
+def time_ms(fn, reps: int = 20, hide_host: bool = True, warmup: int = 3) -> float:
+    """Mean ms of `fn` over `reps` calls after `warmup` warm-ups, by CUDA
     events; with `hide_host` the card sleeps while the host enqueues."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

@@ -377,3 +377,34 @@ def test_band_stitch_matches_full_frame(dev, layout):
         if f == "tap":
             g, want = g[:, :2], want[:, :2]
         torch.testing.assert_close(g, want, rtol=2e-3, atol=3e-6, msg=f)
+
+
+def test_bench_scale_on_card(dev):
+    """`run_config` on the card at a small size: the counts of the
+    binning, times and peak memory measured; `bench.measure`'s render-only
+    image equal to its forward+backward image; A and C launched once a
+    call of the benchmark loss."""
+    from sgs_tpu_torch import bench
+    from sgs_tpu_torch.tools import bench_scale
+
+    r = bench_scale.run_config(20_000, True, 480, 270, device=dev, iters=1)
+    model, cam = bench_scale.scale_scene(20_000, True, 480, 270, device=dev)
+    counts = bench_scale.scene_counts(model, cam)
+    assert {k: r[k] for k in counts} == counts and counts["instances"] > 20_000
+    assert r["fwd_bwd_ms"] > 0 and r["render_ms"] > 0 and r["peak_gib"] > 0
+    a0, c0 = flat_raster.KERNEL.launches, flat_raster.BACKWARD.launches
+    m = bench.measure(model, cam, iters=2)
+    assert (flat_raster.KERNEL.launches - a0, flat_raster.BACKWARD.launches - c0) == (6, 3)
+    assert torch.equal(m["image"], m["render_image"]) and m["fps"] > 0 and m["render_fps"] > 0
+
+
+def test_eval_ply_on_card(dev, capsys):
+    """`tools/eval_ply.py` on the LGM snapshot prints the line that the JAX
+    script prints on the CPU (`tests/test_torch_bench.py`)."""
+    from sgs_tpu_torch.tools import eval_ply
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    eval_ply.main([os.path.join(root, "assets", "lgm", "point_cloud.ply"),
+                   os.path.join(root, "data", "lgm400"), "0"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line == "test_psnr_mean 21.300 views 8 gaussians 16000 overflowed_views 0"
